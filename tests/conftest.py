@@ -42,3 +42,9 @@ def pytest_runtest_call(item):
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, prev)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (an H100 for the sm_90a kernels); "
+                   "skips itself where torch.cuda.is_available() is False")
