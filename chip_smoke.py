@@ -37,7 +37,6 @@ line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
-import math
 import subprocess
 import sys
 import time
@@ -234,6 +233,37 @@ def run_engine(serve, model, params, reqs):
     return done, engine, time.perf_counter() - t0
 
 
+def profile_decode(serve, model, params, reqs, steps: int = 4):
+    """Where a batched decode step's time goes: admit one request per slot,
+    then trace ``steps`` decode steps with torch.profiler. Prints the host
+    time per step, the device time per step (sum of kernel times) and the
+    largest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    engine = serve.ContinuousBatchingEngine(model, params,
+                                            max_batch=SERVE["slots"],
+                                            max_seq=SERVE["max_seq"])
+    for r in reqs[:SERVE["slots"]]:
+        engine.submit(serve.Request(uid=r.uid, prompt=r.prompt,
+                                    max_new_tokens=steps + 2))
+    engine.step()  # admits every slot and runs the first decode
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    print(f"[profile] decode step ({model.build_kwargs['impl']}): host "
+          f"{host_ms:.3f} ms/step, device busy {dev_ms:.3f} ms/step "
+          f"({100 * dev_ms / host_ms:.1f}% of the step)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
+              f"{e.count // steps:5d} calls/step  {e.key[:90]}")
+    return host_ms, dev_ms
+
+
 @torch.inference_mode()
 def top2_margin(model, params, prompt, tokens, index):
     """The plain path's top-2 logit margin where it chose ``tokens[index]``,
@@ -326,6 +356,9 @@ def main() -> int:
               and all(0 <= t < cfg.vocab_size for t in f.tokens),
               f"request {u}: {len(f.tokens)} tokens, reason {f.reason}")
 
+    prof = {impl: profile_decode(serve, m, params, reqs)
+            for impl, m in (("pallas", model), ("naive", naive))}
+
     # -- phase 5: the same requests through the plain path ---------------------
     done_n, engine_n, wall_n = run_engine(serve, naive, params, reqs)
     print(f"[serve] naive: {engine_n.tokens_out} tokens in {wall_n:.3f} s "
@@ -369,6 +402,8 @@ def main() -> int:
         "decode_steps": engine.decode_steps, "occupancy": engine.occupancy,
         "naive_tok_s": engine_n.tokens_out / wall_n,
         "identical_streams": identical,
+        "decode_step_host_ms": {k: v[0] for k, v in prof.items()},
+        "decode_step_device_ms": {k: v[1] for k, v in prof.items()},
         "seconds_total": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

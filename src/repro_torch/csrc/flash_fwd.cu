@@ -9,20 +9,25 @@
 // What bounds it on the H100: at the prefill shapes of the serve path
 // (S ~ 200..512, hd 64) the work is ~4*hd FLOPs per (query, key) pair against
 // 16 bytes per (row, hd) element moved, so it is bound by operations, not by
-// the 3.35 TB/s of device memory. This first kernel runs those operations as
-// plain f32 FFMA on the CUDA cores (67 TFLOP/s peak), not on the tensor
-// cores; wgmma, TMA and split-KV are later work.
+// the 3.35 TB/s of device memory. This kernel runs those operations as plain
+// f32 FFMA on the CUDA cores (67 TFLOP/s peak), not on the tensor cores;
+// wgmma, TMA and split-KV are later work.
 //
-// What the design does about it: one thread owns one query row, so the row's
-// scaled query (HD floats) and its output accumulator (HD floats) stay in
-// registers for the whole KV sweep, and the online-softmax statistics m, l
-// never leave the thread. A block of BQ = 64 threads stages one BK-key tile of
-// K and V in shared memory at a time with coalesced loads; every thread then
-// reads the same K/V element in the same cycle (a shared-memory broadcast, no
-// bank conflicts). Each K/V tile is read from device memory once per block of
-// 64 query rows. The TPU kernel cut its blocks with divisor_block, which falls
-// to 1-row blocks for a prime S; here tiles are fixed and the ragged tails of
-// both the query rows and the keys are masked inside the kernel.
+// What the design does about it: four threads own one query row, each a
+// contiguous quarter of the head dim, so the row's scaled query and its
+// output accumulator stay in registers (HD/4 floats each) for the whole KV
+// sweep and the online-softmax statistics never leave the thread group; the
+// four partial dot products meet through two warp shuffles. A block of 64
+// rows (256 threads, two blocks per SM) stages one BK-key tile of K and V in
+// shared memory with coalesced loads, and loads the next tile into registers
+// while it computes on this one. Each thread reads K and V four floats at a
+// time (LDS.128), the eight lanes of a load phase on distinct banks (the
+// quarters of a shared-memory row are padded apart), so one shared-memory
+// load feeds four FMAs, and it accumulates the BK scores of a tile as BK
+// independent chains. Each K/V tile is read from device memory once per
+// block of 64 query rows. The TPU kernel cut its blocks with divisor_block,
+// which falls to 1-row blocks for a prime S; here tiles are fixed and the
+// ragged tails of both the query rows and the keys are masked in the kernel.
 //
 // Layout: q (B,H,Sq,HD), k and v (B,H,Sk,HD), o (B,H,Sq,HD), all contiguous,
 // in f32 or bf16; lse (B,H,Sq) f32. The kernel allocates nothing and launches
@@ -34,73 +39,113 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the JAX kernels' NEG_INF, not -inf
-constexpr int kBQ = 64;            // query rows per block, one per thread
-constexpr int kBK = 32;            // keys per shared-memory tile
+constexpr int kTPR = 4;            // threads per query row
+constexpr int kBQ = 64;            // query rows per block
+constexpr int kThreads = kBQ * kTPR;
+constexpr int kPad = 4;            // floats between the quarters of a smem row
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-template <bool LOWP>
-__device__ __forceinline__ float dot_in(float x) {
-  return LOWP ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+// a dot input: bf16-rounded under `lowp`, else as is
+__device__ __forceinline__ float dot_in(float x, bool lowp) {
+  return lowp ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
-template <typename T, int HD, bool LOWP>
-__global__ void __launch_bounds__(kBQ)
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int causal,
-                 int q_offset, float scale) {
-  __shared__ float ks[kBK][HD];
-  __shared__ float vs[kBK][HD];
+                 int q_offset, float scale, int lowp_flag) {
+  constexpr int BK = HD <= 64 ? 32 : 16;  // keys per shared-memory tile
+  constexpr int DP = HD / kTPR;           // head dims per thread
+  constexpr int ROW = HD + kTPR * kPad;   // shared-memory row stride (floats)
+  constexpr int PER = BK * HD / kThreads; // tile elements each thread stages
+  __shared__ __align__(16) float ks[BK * ROW];
+  __shared__ __align__(16) float vs[BK * ROW];
 
+  const bool lowp = lowp_flag != 0;
   const int t = threadIdx.x;
+  const int part = t % kTPR;
   const int row0 = (int)blockIdx.x * kBQ;
-  const int row = row0 + t;
+  const int row = row0 + t / kTPR;
   const size_t bh = blockIdx.y;
   const T* qb = q + bh * Sq * HD;
   const T* kb = k + bh * Sk * HD;
   const T* vb = v + bh * Sk * HD;
   const bool live_row = row < Sq;
 
-  float qr[HD];
-  float acc[HD];
+  float qr[DP];
+  float acc[DP];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = live_row ? dot_in<LOWP>(to_f32(qb[(size_t)row * HD + d]) * scale) : 0.f;
-    acc[d] = 0.f;
+  for (int i = 0; i < DP; ++i) {
+    const int d = part * DP + i;
+    qr[i] = live_row ? dot_in(to_f32(qb[(size_t)row * HD + d]) * scale, lowp) : 0.f;
+    acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
 
-  int n_tiles = (Sk + kBK - 1) / kBK;
+  int n_tiles = (Sk + BK - 1) / BK;
   if (causal) {
     // skip KV tiles above the diagonal of this block's last live row
-    const int last_row = min(row0 + kBQ - 1, Sq - 1);
-    const int last_key = last_row + q_offset;
-    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBK + 1);
+    const int last_key = min(row0 + kBQ - 1, Sq - 1) + q_offset;
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / BK + 1);
   }
+  const float* kq = ks + part * (DP + kPad);  // this thread's quarter of a row
+  const float* vq = vs + part * (DP + kPad);
+
+  // the next tile's K/V elements, loaded while the current tile computes
+  float kreg[PER], vreg[PER];
+  auto fetch = [&](int key0) {
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int idx = t + e * kThreads;
+      const int key = key0 + idx / HD;
+      const bool in = key < Sk;
+      kreg[e] = in ? to_f32(kb[(size_t)key * HD + idx % HD]) : 0.f;
+      vreg[e] = in ? to_f32(vb[(size_t)key * HD + idx % HD]) : 0.f;
+    }
+  };
+  if (n_tiles > 0) fetch(0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int key0 = j * kBK;
+    const int key0 = j * BK;
     __syncthreads();  // the previous tile is consumed
-    for (int idx = t; idx < kBK * HD; idx += kBQ) {
-      const int r = idx / HD, c = idx % HD;
-      const int key = key0 + r;
-      const bool in = key < Sk;
-      ks[r][c] = in ? dot_in<LOWP>(to_f32(kb[(size_t)key * HD + c])) : 0.f;
-      vs[r][c] = in ? dot_in<LOWP>(to_f32(vb[(size_t)key * HD + c])) : 0.f;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int idx = t + e * kThreads;
+      const int c = idx % HD;
+      const int at = (idx / HD) * ROW + c + (c / DP) * kPad;
+      ks[at] = dot_in(kreg[e], lowp);
+      vs[at] = dot_in(vreg[e], lowp);
     }
     __syncthreads();
+    if (j + 1 < n_tiles) fetch(key0 + BK);
 
-    float s[kBK];
+    // scores: BK independent accumulators, one float4 of K per 4 FMAs
+    float s[BK];
+#pragma unroll
+    for (int jj = 0; jj < BK; ++jj) s[jj] = 0.f;
+#pragma unroll
+    for (int i4 = 0; i4 < DP / 4; ++i4) {
+#pragma unroll
+      for (int jj = 0; jj < BK; ++jj) {
+        const float4 kv = *reinterpret_cast<const float4*>(kq + jj * ROW + 4 * i4);
+        s[jj] = fmaf(qr[4 * i4 + 0], kv.x, s[jj]);
+        s[jj] = fmaf(qr[4 * i4 + 1], kv.y, s[jj]);
+        s[jj] = fmaf(qr[4 * i4 + 2], kv.z, s[jj]);
+        s[jj] = fmaf(qr[4 * i4 + 3], kv.w, s[jj]);
+      }
+    }
     float m_blk = kNegInf;
 #pragma unroll
-    for (int jj = 0; jj < kBK; ++jj) {
-      float a = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) a = fmaf(qr[d], ks[jj][d], a);
+    for (int jj = 0; jj < BK; ++jj) {
+      float a = s[jj];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
       const int key = key0 + jj;
       const bool ok = key < Sk && (!causal || key <= row + q_offset);
       s[jj] = ok ? a : kNegInf;
@@ -110,19 +155,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float corr = expf(m - m_new);
     float l_blk = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < kBK; ++jj) {
+    for (int jj = 0; jj < BK; ++jj) {
       // keys past Sk exist only in this padded tile: they weigh exactly 0
       const float p = (key0 + jj < Sk) ? expf(s[jj] - m_new) : 0.f;
       l_blk += p;
-      s[jj] = dot_in<LOWP>(p);
+      s[jj] = dot_in(p, lowp);
     }
     l = l * corr + l_blk;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      float a = acc[d] * corr;
+    for (int i = 0; i < DP; ++i) acc[i] *= corr;
 #pragma unroll
-      for (int jj = 0; jj < kBK; ++jj) a = fmaf(s[jj], vs[jj][d], a);
-      acc[d] = a;
+    for (int jj = 0; jj < BK; ++jj) {
+      const float4* vr = reinterpret_cast<const float4*>(vq + jj * ROW);
+#pragma unroll
+      for (int i4 = 0; i4 < DP / 4; ++i4) {
+        const float4 vv = vr[i4];
+        acc[4 * i4 + 0] = fmaf(s[jj], vv.x, acc[4 * i4 + 0]);
+        acc[4 * i4 + 1] = fmaf(s[jj], vv.y, acc[4 * i4 + 1]);
+        acc[4 * i4 + 2] = fmaf(s[jj], vv.z, acc[4 * i4 + 2]);
+        acc[4 * i4 + 3] = fmaf(s[jj], vv.w, acc[4 * i4 + 3]);
+      }
     }
     m = m_new;
   }
@@ -130,10 +182,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (live_row) {
     const float lc = fmaxf(l, 1e-30f);
     const float inv = 1.f / lc;
-    T* orow = o + (bh * Sq + row) * HD;
+    T* orow = o + (bh * Sq + row) * HD + part * DP;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) store(orow + d, acc[d] * inv);
-    lse[bh * Sq + row] = m + logf(lc);
+    for (int i = 0; i < DP; ++i) store(orow + i, acc[i] * inv);
+    if (part == 0) lse[bh * Sq + row] = m + logf(lc);
   }
 }
 
@@ -143,15 +195,9 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
                       int q_offset, float scale, int lowp,
                       cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  if (lowp) {
-    flash_fwd_kernel<T, HD, true><<<grid, kBQ, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, causal,
-        q_offset, scale);
-  } else {
-    flash_fwd_kernel<T, HD, false><<<grid, kBQ, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, causal,
-        q_offset, scale);
-  }
+  flash_fwd_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, causal,
+      q_offset, scale, lowp);
   return cudaGetLastError();
 }
 

@@ -198,10 +198,15 @@ def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
         return out
     lib = _decode_lib()
     need = lib.flash_decode_smem_bytes(G, hd, hdv)
-    if need > lib.flash_decode_max_smem_bytes():
-        raise ValueError(f"flash_decode needs {need} bytes of shared memory "
-                         f"for G={G}, hd={hd}, hdv={hdv}; a block has "
-                         f"{lib.flash_decode_max_smem_bytes()}")
+    if hd % 4 or hdv > 128 or need > lib.flash_decode_max_smem_bytes():
+        # the MLA latent geometry (G=H, hd=576, hdv=512) needs another tiling
+        raise ValueError(f"flash_decode takes hd % 4 == 0, hdv <= 128 and at "
+                         f"most {lib.flash_decode_max_smem_bytes()} bytes of "
+                         f"shared memory; got G={G}, hd={hd}, hdv={hdv} "
+                         f"({need} bytes)")
+    if k.data_ptr() % (4 * k.element_size()):
+        raise ValueError("flash_decode reads K rows 4 elements at a time: the "
+                         "cache must be aligned to 4 elements")
     device, stream = _stream_args(q)
     rc = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           lengths.data_ptr(), out.data_ptr(), B, K, G, Smax,

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional
 
 import torch
 

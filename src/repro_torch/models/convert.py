@@ -46,10 +46,3 @@ def from_numpy_tree(tree, *, device="cuda", dtype: Optional[torch.dtype] = None)
 
     return walk(tree)
 
-
-def to_numpy_tree(tree):
-    """The port's tensors -> nested dicts of numpy arrays (for the reverse
-    trip in tests)."""
-    if isinstance(tree, dict):
-        return {k: to_numpy_tree(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()

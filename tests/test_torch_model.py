@@ -21,8 +21,9 @@ from repro.models import build_model as jax_build_model
 from repro.models import transformer as jtr
 from repro_torch.configs import get_config
 from repro_torch.launch.steps import greedy_decode_tokens
-from repro_torch.models import build_model, transformer
-from repro_torch.models.convert import from_numpy_tree, to_numpy_tree
+from repro.models import common as jcommon
+from repro_torch.models import build_model, common, transformer
+from repro_torch.models.convert import from_numpy_tree
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CFG = ASSIGNED["llama3.2-1b"].reduced()
@@ -34,6 +35,12 @@ def params():
     tparams = from_numpy_tree(jax.tree_util.tree_map(np.asarray, jparams),
                               device="cpu")
     return jparams, tparams
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.numpy()
 
 
 def _tokens(seed, B, S):
@@ -51,7 +58,7 @@ def test_config_copy_matches_reference():
 
 def test_converted_params_round_trip(params):
     jparams, tparams = params
-    back = to_numpy_tree(tparams)
+    back = _to_numpy(tparams)
     flat_j = jax.tree_util.tree_leaves_with_path(jparams)
     assert len(flat_j) == len(jax.tree_util.tree_leaves(back))
     for path, leaf in flat_j:
@@ -59,6 +66,15 @@ def test_converted_params_round_trip(params):
         for key in path:
             node = node[key.key]
         np.testing.assert_array_equal(node, np.asarray(leaf))
+
+
+def test_convert_carries_bf16_bits():
+    leaf = np.asarray(jnp.asarray([[1.5, -2.25], [3e-3, 7.0]], jnp.bfloat16))
+    got = from_numpy_tree({"w": leaf}, device="cpu", dtype=None)["w"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), leaf.astype(np.float32))
+    assert from_numpy_tree({"w": leaf}, device="cpu",
+                           dtype=torch.float32)["w"].dtype == torch.float32
 
 
 def test_port_init_draws_reference_distributions():
@@ -72,14 +88,49 @@ def test_port_init_draws_reference_distributions():
     assert torch.equal(p["ln_f"]["scale"], torch.ones(CFG.d_model))
 
 
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("activation", ["silu", "gelu", "relu2"])
+def test_common_primitives_match_jax(kind, activation):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    p = {"scale": rng.standard_normal(16).astype(np.float32),
+         "bias": rng.standard_normal(16).astype(np.float32)}
+    if kind == "rmsnorm":
+        del p["bias"]
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    want = jcommon.apply_norm({k: jnp.asarray(v) for k, v in p.items()},
+                              jnp.asarray(x), kind)
+    got = common.apply_norm(tp, torch.from_numpy(x), kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(common.activate(torch.from_numpy(x), activation).numpy(),
+                               np.asarray(jcommon.activate(jnp.asarray(x), activation)),
+                               rtol=2e-5, atol=2e-5)
+    pos = np.arange(5, dtype=np.int32)[None].repeat(2, 0)
+    xr = x.reshape(2, 5, 2, 8)
+    np.testing.assert_allclose(
+        common.apply_rope(torch.from_numpy(xr), torch.from_numpy(pos), 5e5).numpy(),
+        np.asarray(jcommon.apply_rope(jnp.asarray(xr), jnp.asarray(pos), 5e5)),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_cross_entropy_matches_jax():
+    rng = np.random.default_rng(8)
+    logits = rng.standard_normal((2, 6, 11)).astype(np.float32)
+    labels = rng.integers(0, 11, (2, 6)).astype(np.int32)
+    labels[0, 2] = labels[1, 5] = -1  # ignored positions
+    want = jcommon.cross_entropy(jnp.asarray(logits), jnp.asarray(labels))
+    got = common.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
+    np.testing.assert_allclose(got.item(), float(want), rtol=2e-6, atol=2e-6)
+
+
 @pytest.mark.parametrize("impl", ["naive", "chunked", "pallas"])
 def test_forward_logits_match_jax(params, impl):
     jparams, tparams = params
     toks = _tokens(1, 2, 19)
     want, _, _ = jtr.forward_decoder(jparams, CFG, jnp.asarray(toks), impl=impl,
                                      chunk=8)
-    got, _ = transformer.forward_decoder(tparams, CFG, torch.from_numpy(toks),
-                                         impl=impl, chunk=8)
+    model = build_model(CFG, impl=impl, chunk=8, device="cpu")
+    got = model.forward(tparams, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

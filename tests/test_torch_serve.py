@@ -6,10 +6,11 @@ streams must be token-identical, with the same retirement reasons. The port
 runs both its attention paths: ``naive``, and ``pallas`` (the flash kernels'
 plain versions on the CPU).
 """
+import json
+
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import ASSIGNED
 from repro.launch import serve as jserve
@@ -126,7 +127,6 @@ def test_cli_runs_on_the_cpu(tmp_path):
                         "--prompt-len", "8", "--gen", "3", "--attn-impl",
                         "pallas", "--device", "cpu", "--json-out", str(out)])
     assert sorted(done) == [0, 1, 2]
-    import json
     payload = json.loads(out.read_text())
     assert payload["device"] == "cpu" and payload["impl"] == "pallas"
     assert payload["stats"]["kernel_launches"] == {"flash_fwd": 0,
