@@ -237,7 +237,8 @@ def profile_decode(serve, model, params, reqs, steps: int = 4):
     """Where a batched decode step's time goes: admit one request per slot,
     then trace ``steps`` decode steps with torch.profiler. Prints the host
     time per step, the device time per step (sum of kernel times) and the
-    largest kernels by device time."""
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     engine = serve.ContinuousBatchingEngine(model, params,
                                             max_batch=SERVE["slots"],
@@ -253,7 +254,8 @@ def profile_decode(serve, model, params, reqs, steps: int = 4):
             engine.step()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # kernels only: an aten op's own entry repeats its kernels' device time
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     print(f"[profile] decode step ({model.build_kwargs['impl']}): host "
           f"{host_ms:.3f} ms/step, device busy {dev_ms:.3f} ms/step "

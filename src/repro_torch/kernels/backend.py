@@ -20,7 +20,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -98,29 +97,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_libraries(names: Iterable[str]) -> Dict[str, float]:
+def build_libraries(names: Iterable[str]) -> None:
     """Compile every named ``csrc/<name>.cu`` that has no library yet, one
-    ``nvcc`` per source, all started together. Returns seconds per build
-    (0.0 when the library was already there). The compiler's ``-Xptxas -v``
-    report goes to ``<library>.log`` beside the library."""
+    ``nvcc`` per source, all started together. The compiler's
+    ``-Xptxas -v`` report (registers, spills) goes to ``<library>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                       tmp, out, log)
-    seconds = {n: 0.0 for n in names}
+        with open(out.with_suffix(".log"), "w") as log:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                            stderr=subprocess.STDOUT), tmp, out)
     failed = []
-    for name, (proc, tmp, out, log) in procs.items():
+    for name, (proc, tmp, out) in procs.items():
         rc = proc.wait()
-        log.close()
-        seconds[name] = time.perf_counter() - t0
         if rc != 0:
             failed.append(f"{name}: nvcc exit {rc}\n"
                           f"{out.with_suffix('.log').read_text()}")
@@ -128,7 +122,6 @@ def build_libraries(names: Iterable[str]) -> Dict[str, float]:
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return seconds
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -144,9 +137,9 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error (its return value is
-    ``cudaGetLastError()`` right after the launch, or a negative code for an
-    argument it refused)."""
+    """Raise if a C entry point reported a CUDA error: its return value is
+    ``cudaGetLastError()`` right after the launch, or
+    ``cudaErrorInvalidValue`` for an argument it refused."""
     if rc != 0:
         raise RuntimeError(f"{what} failed: error {rc} "
                            f"({lib.kernel_error_string(rc).decode()})")

@@ -6,8 +6,8 @@ mode, as ``tests/test_kernels.py`` runs them. Inputs are drawn with numpy
 from a seed and fed to both. Tolerances are those of
 ``tests/test_kernels.py``: 2e-5 at f32, 5e-2 with bf16 dot inputs.
 
-The CUDA kernels themselves are held against the plain versions by the
-``cuda``-marked test at the end (and by ``chip_smoke.py``) on a card.
+The CUDA kernels themselves are held against the plain versions on a card
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -156,31 +156,3 @@ def test_device_policy():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             backend.resolve_device("cuda")
-
-
-# --- on the card ----------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,lowp", [(torch.float32, False),
-                                        (torch.bfloat16, True)])
-def test_cuda_kernels_match_plain_versions(dtype, lowp):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels are built with nvcc for sm_90a")
-    dev = torch.device("cuda")
-    tol = BF16 if lowp else F32
-    g = torch.Generator(device=dev).manual_seed(0)
-    for S in (64, 67):
-        q, k, v = (torch.randn(2, 4, S, 64, generator=g, device=dev).to(dtype)
-                   for _ in range(3))
-        o, lse = tfa.flash_attention_fwd_lse(q, k, v, causal=True, lowp=lowp)
-        ro, rl = ref.ref_flash_attention_fwd(q, k, v, causal=True, lowp=lowp)
-        torch.testing.assert_close(o.float(), ro.float(), **tol)
-        torch.testing.assert_close(lse, rl, **tol)
-    q = torch.randn(4, 2, 4, 64, generator=g, device=dev).to(dtype)
-    k, v = (torch.randn(4, 40, 2, 64, generator=g, device=dev).to(dtype)
-            for _ in range(2))
-    lens = torch.tensor([0, 1, 39, 41], dtype=torch.int32, device=dev)
-    out = tfa.flash_decode(q, k, v, lens, lowp=lowp)
-    torch.testing.assert_close(out.float(),
-                               ref.ref_flash_decode(q, k, v, lens, lowp=lowp).float(),
-                               **tol)
