@@ -16,9 +16,9 @@ stream.
 caller can show that a run really went through the kernels. Plain-version
 calls on the CPU do not count.
 
-This slice is forward only: the wrappers raise on an input that requires
-grad. The ``torch.autograd.Function`` with the dq/dkv kernels comes with
-the training slice.
+Forward only for now: the wrappers raise on an input that requires grad.
+The ``torch.autograd.Function`` with the dq/dkv backward kernels is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -81,8 +81,8 @@ def _check_device(*tensors) -> str:
 def _check_no_grad(*tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the flash kernels are forward only in this slice; the backward "
-            "kernels (dq/dkv) come with the training slice")
+            "the flash kernels are forward only: the backward kernels "
+            "(dq/dkv) are not ported yet")
 
 
 def _check_dtype(*tensors) -> None:

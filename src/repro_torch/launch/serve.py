@@ -1,4 +1,4 @@
-"""Serving driver: continuous batching over a slotted KV cache.
+"""Serving loop: continuous batching over a slotted KV cache.
 
 The engine serves a *stream* of requests rather than one lockstep batch:
 each of ``max_batch`` cache slots carries its own ``cache_len``, finished
@@ -19,10 +19,10 @@ Mechanics per decode step:
 kernel and decode attention through the flash-decode kernel (their plain
 versions on the CPU); ``auto`` consults ``kernels/backend.auto_decode_impl``.
 
-This slice ports the contiguous layout with greedy decode under FIFO
+Ported so far: the contiguous layout with greedy decode under FIFO
 serialize admission. Sampling, the paged layout and prefix sharing,
 speculative decoding, shed/deadlines/drain/``hold_blocks``, the ``set_*``
-rung knobs and telemetry spans are later slices.
+rung knobs and telemetry spans are not ported yet.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\

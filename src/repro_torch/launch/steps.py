@@ -1,6 +1,6 @@
-"""Serve step builders over a ``Model``.
+"""Serve step functions over a ``Model``.
 
-PyTorch runs eagerly, so the builders wrap the model's functions in
+PyTorch runs eagerly, so ``build_*_step`` wrap the model's functions in
 ``torch.inference_mode`` instead of jitting them. Where the JAX package
 donates the KV cache to a jitted step (``donate_argnums``), the port writes
 the cache in place and returns the same buffers.

@@ -9,7 +9,7 @@ package's impl names:
             their plain versions on the CPU)
 
 The MLA, cross-attention and paged/speculative decode paths of the JAX
-package are later slices of the port.
+package are not ported yet.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ layer's weights stacked on a leading axis, as ``init_decoder`` makes them
 there, and each loop below takes layer ``i`` as a view. The KV cache keeps
 the JAX layout too: ``{"k", "v"}`` of shape (L, B, Smax, K, hd), so the
 tests compare caches directly. The MoE, VLM, SSM and hybrid families are
-later slices of the port.
+not ported yet.
 """
 from __future__ import annotations
 
