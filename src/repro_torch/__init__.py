@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of the ``repro`` package.
+"""PyTorch/CUDA port of the ``repro`` package: serving
+(``launch/serve.py``) and training (``launch/train.py`` over the Swan
+``TrainSession``) of the dense decoder family.
 
 It mirrors the module names of ``src/repro/`` so that each module's
 counterpart is easy to find. It imports ``torch``, numpy and the standard

@@ -1,9 +1,10 @@
 """Flash-attention wrappers around the hand-written Hopper kernels.
 
-Two kernels carry the serving path:
+  flash_fwd      csrc/flash_fwd.cu     replaces _fwd_kernel    (prefill, training forward)
+  flash_decode   csrc/flash_decode.cu  replaces _decode_kernel (every decode)
 
-  flash_fwd     csrc/flash_fwd.cu     replaces _fwd_kernel    (prefill)
-  flash_decode  csrc/flash_decode.cu  replaces _decode_kernel (every decode)
+and ``kernels/flash_backward.py`` wraps the training backward's two,
+``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``).
 
 Each wrapper checks its inputs, and then runs the plain PyTorch version
 (``kernels/ref.py``) for tensors on the CPU, or launches the CUDA kernel for
@@ -13,12 +14,16 @@ tensor either launches the kernel or raises. Outputs are allocated here with
 stream.
 
 ``launches`` counts kernel launches (plain integers, one per wrapper), so a
-caller can show that a run really went through the kernels. Plain-version
-calls on the CPU do not count.
+caller can show that a run really went through the kernels; the backward
+kernels count in ``flash_backward.launches``, and ``all_launches`` merges the
+two. Plain-version calls on the CPU do not count.
 
-Forward only for now: the wrappers raise on an input that requires grad.
-The ``torch.autograd.Function`` with the dq/dkv backward kernels is not
-ported yet.
+``flash_attention_mha`` is differentiable: ``_FlashMHA`` is the
+counterpart of the JAX package's ``_flash_mha`` custom_vjp. Its forward runs
+``flash_fwd`` and saves q, k, v, o and lse; its backward is
+``flash_backward.flash_attention_bwd``. ``flash_attention_fwd_lse`` and
+``flash_decode`` are forward only, as in the reference, and raise on an
+input that requires grad.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from repro_torch.kernels.ref import ref_flash_attention_fwd, ref_flash_decode
 
 launches = {"flash_fwd": 0, "flash_decode": 0}
 
-FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims flash_fwd.cu is instantiated for
+FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims flash_{fwd,bwd}.cu are instantiated for
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
@@ -42,8 +47,18 @@ _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    """Zero the launch counts of every flash kernel, the backward's too."""
+    from repro_torch.kernels import flash_backward
+    for counts in (launches, flash_backward.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def all_launches() -> dict:
+    """Launch counts of every flash kernel: this module's and
+    ``flash_backward``'s."""
+    from repro_torch.kernels import flash_backward
+    return {**launches, **flash_backward.launches}
 
 
 @functools.cache
@@ -78,11 +93,11 @@ def _check_device(*tensors) -> str:
     return dev.type
 
 
-def _check_no_grad(*tensors) -> None:
+def _check_no_grad(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the flash kernels are forward only: the backward kernels "
-            "(dq/dkv) are not ported yet")
+            f"{what} is forward only: it has no gradient in the reference "
+            f"either (flash_attention_mha is the differentiable attention)")
 
 
 def _check_dtype(*tensors) -> None:
@@ -105,14 +120,7 @@ def _stream_args(t: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_fwd_lse(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                            lowp: Optional[bool] = None):
-    """q, k, v: (B,H,S,hd) with one head count. Returns (o (B,H,Sq,hd) in q's
-    dtype, lse (B,H,Sq) f32), the log-sum-exp rows a backward would reuse.
-
-    ``lowp`` (default: ``REPRO_ATTN_BF16``) feeds the dots bf16 inputs while
-    the softmax statistics and the accumulator stay f32.
-    """
+def _check_mha(q, k, v) -> None:
     if q.shape[-1] != k.shape[-1] or q.shape[-1] != v.shape[-1]:
         # the kernel assumes one head dim throughout (MLA prefill has
         # qk_dim != v_dim and must take the 'chunked' impl)
@@ -125,9 +133,12 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True, q_offset: int = 0,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} must share (B, H, ., hd) "
                          f"with at least one key")
-    _check_no_grad(q, k, v)
     _check_dtype(q, k, v)
-    lowp = attn_bf16(lowp)
+
+
+def _fwd_lse(q, k, v, causal: bool, q_offset: int, lowp: bool):
+    """The forward kernel (its plain version on the CPU), no autograd."""
+    B, H, Sq, hd = q.shape
     if _check_device(q, k, v) == "cpu":
         return ref_flash_attention_fwd(q, k, v, causal=causal,
                                        q_offset=int(q_offset), lowp=lowp)
@@ -152,11 +163,57 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return o, lse
 
 
+def flash_attention_fwd_lse(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                            lowp: Optional[bool] = None):
+    """q, k, v: (B,H,S,hd) with one head count. Returns (o (B,H,Sq,hd) in q's
+    dtype, lse (B,H,Sq) f32), the log-sum-exp rows the backward reuses.
+
+    ``lowp`` (default: ``REPRO_ATTN_BF16``) feeds the dots bf16 inputs while
+    the softmax statistics and the accumulator stay f32.
+    """
+    _check_mha(q, k, v)
+    _check_no_grad("flash_attention_fwd_lse", q, k, v)
+    return _fwd_lse(q, k, v, causal, int(q_offset), attn_bf16(lowp))
+
+
+# ---------------------------------------------------------------------------
+# differentiable attention (training)
+# ---------------------------------------------------------------------------
+
+
+class _FlashMHA(torch.autograd.Function):
+    """Flash attention with the hand-written backward: the counterpart of
+    the reference's ``_flash_mha`` custom_vjp. Gradients come back in the
+    inputs' dtypes, cast from the kernels' f32 as ``_flash_mha_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, lowp: bool):
+        # save the contiguous copies the kernels read, not the strided views
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = _fwd_lse(q, k, v, causal, q_offset, lowp)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset, ctx.lowp = causal, q_offset, lowp
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels.flash_backward import flash_attention_bwd
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.to(q.dtype),
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset, lowp=ctx.lowp)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
 def flash_attention_mha(q, k, v, *, causal: bool = True, q_offset: int = 0,
                         lowp: Optional[bool] = None):
-    """q, k, v: (B,H,S,hd) with one head count. Returns (B,H,Sq,hd)."""
-    return flash_attention_fwd_lse(q, k, v, causal=causal, q_offset=q_offset,
-                                   lowp=lowp)[0]
+    """q, k, v: (B,H,S,hd) with one head count. Returns (B,H,Sq,hd);
+    differentiable through ``_FlashMHA``."""
+    _check_mha(q, k, v)
+    lowp = attn_bf16(lowp)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashMHA.apply(q, k, v, bool(causal), int(q_offset), lowp)
+    return _fwd_lse(q, k, v, causal, int(q_offset), lowp)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +240,7 @@ def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    _check_no_grad(q, k, v)
+    _check_no_grad("flash_decode", q, k, v)
     _check_dtype(q, k, v)
     lowp = attn_bf16(lowp)
     lengths = torch.as_tensor(lengths, device=q.device)

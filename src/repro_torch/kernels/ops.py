@@ -14,7 +14,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q: (B,Sq,H,hd); k,v: (B,Sk,K,hd) with K dividing H (GQA broadcast).
 
     The KV heads are broadcast to the H query heads before the kernel, so the
-    MHA kernel never sees GQA.
+    MHA kernel never sees GQA. The broadcast is an expand and a reshape: its
+    backward sums dk and dv over the G query heads of each group, as JAX's
+    broadcast transpose does.
     """
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]

@@ -45,6 +45,67 @@ def ref_flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return o.to(q.dtype), lse
 
 
+def _bwd_terms(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+               lowp: bool):
+    """The shared part of the backward kernels: the dot inputs (bf16-rounded
+    under ``lowp``), p = exp(scale * q k^T - lse) with masked entries 0, and
+    ds = p * (do v^T - delta), all f32."""
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    Sq, Sk = q.shape[2], k.shape[2]
+    qc, kc, vc, doc = (_dot_inputs(t, lowp) for t in (q, k, v, do))
+    s = scale * (qc @ kc.transpose(-1, -2))                       # (B,H,Sq,Sk)
+    p = torch.exp(s - lse.float()[..., None])
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        kj = torch.arange(Sk, device=q.device)[None, :]
+        p = torch.where(kj <= qi, p, torch.zeros_like(p))
+    dp = doc @ vc.transpose(-1, -2)
+    ds = p * (dp - delta.float()[..., None])
+    return scale, qc, kc, doc, p, ds
+
+
+def ref_flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                     q_offset: int = 0, lowp: bool = False):
+    """dq (B,H,Sq,hd) f32 = scale * ds k, as ``_dq_kernel`` computes it."""
+    scale, _, kc, _, _, ds = _bwd_terms(q, k, v, do, lse, delta, causal,
+                                        q_offset, lowp)
+    return scale * (_dot_inputs(ds, lowp) @ kc)
+
+
+def ref_flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                      q_offset: int = 0, lowp: bool = False):
+    """(dk, dv) (B,H,Sk,hd) f32: dk = scale * ds^T q and dv = p^T do, as
+    ``_dkv_kernel`` computes them (p and ds rounded to bf16 under ``lowp``)."""
+    scale, qc, _, doc, p, ds = _bwd_terms(q, k, v, do, lse, delta, causal,
+                                          q_offset, lowp)
+    dk = scale * (_dot_inputs(ds, lowp).transpose(-1, -2) @ qc)
+    dv = _dot_inputs(p, lowp).transpose(-1, -2) @ doc
+    return dk, dv
+
+
+def ref_flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                            q_offset: int = 0, lowp: bool = False):
+    """(dq, dk, dv) f32 of flash attention, step by step.
+
+    q, o, do: (B,H,Sq,hd); k, v: (B,H,Sk,hd); lse: (B,H,Sq) f32, the
+    forward's log-sum-exp rows. With delta = rowsum(do * o) (the reference
+    wrapper ``_bwd_call`` computes it in f32 outside the kernels):
+
+      p  = exp(scale * q k^T - lse), 0 where masked
+      ds = p * (do v^T - delta)
+      dq = scale * ds k;  dk = scale * ds^T q;  dv = p^T do
+    """
+    delta = (do.float() * o.float()).sum(-1)
+    scale, qc, kc, doc, p, ds = _bwd_terms(q, k, v, do, lse, delta, causal,
+                                           q_offset, lowp)
+    dsc = _dot_inputs(ds, lowp)
+    dq = scale * (dsc @ kc)
+    dk = scale * (dsc.transpose(-1, -2) @ qc)
+    dv = _dot_inputs(p, lowp).transpose(-1, -2) @ doc
+    return dq, dk, dv
+
+
 def ref_flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
                      lowp: bool = False):
     """Single-query decode over a ragged cache.

@@ -6,7 +6,8 @@ package's impl names:
   chunked - online softmax over KV chunks in plain torch; never
             materializes Sq x Sk (``build_model``'s default)
   pallas  - the hand-written Hopper flash kernels (``kernels/ops.py``;
-            their plain versions on the CPU)
+            their plain versions on the CPU), differentiable through
+            their own backward kernels
 
 The MLA, cross-attention and paged/speculative decode paths of the JAX
 package are not ported yet.

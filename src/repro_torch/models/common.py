@@ -92,7 +92,7 @@ def apply_rope(x, positions, theta: float):
 
 
 def embed_tokens(embed, tokens):
-    return F.embedding(tokens, embed)
+    return F.embedding(tokens.long(), embed)
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -22,9 +22,12 @@ class Model:
     device: torch.device
     init: Callable[[torch.Generator], Any]  # generator -> params
     forward: Callable[[Any, dict], Any]  # (params, batch) -> logits
+    loss: Callable[[Any, dict], Any]  # (params, batch) -> scalar
     prefill: Callable  # (params, batch) -> (logits, cache)
     init_cache: Callable  # (batch, max_len, dtype) -> cache
     decode_step: Callable  # (params, cache, tokens, cache_len) -> (logits, cache)
+    # the exact build_model kwargs this model was constructed with, so a
+    # single-knob rebuild preserves the rest
     build_kwargs: dict = dataclasses.field(default_factory=dict)
 
     def generator(self, seed: int) -> torch.Generator:
@@ -32,13 +35,22 @@ class Model:
         return torch.Generator(device=self.device).manual_seed(seed)
 
 
+def rebuild_model(model: Model, **overrides) -> Model:
+    """Rebuild a model changing only the given build_model kwargs."""
+    kw = dict(model.build_kwargs)
+    kw.update(overrides)
+    return build_model(model.cfg, **kw)
+
+
 def build_model(cfg: ModelConfig, *, impl: str = "chunked", chunk: int = 1024,
-                param_dtype=torch.float32, device="cuda") -> Model:
+                remat: str = "none", param_dtype=torch.float32,
+                device="cuda") -> Model:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     dev = resolve_device(device)
-    kw = dict(impl=impl, chunk=chunk, param_dtype=param_dtype, device=dev)
+    kw = dict(impl=impl, chunk=chunk, remat=remat, param_dtype=param_dtype,
+              device=dev)
 
     def prefill(p, b):
         return transformer.prefill_decoder(p, cfg, b["tokens"], impl=impl,
@@ -50,7 +62,9 @@ def build_model(cfg: ModelConfig, *, impl: str = "chunked", chunk: int = 1024,
         device=dev,
         init=lambda gen: transformer.init_decoder(gen, cfg, param_dtype),
         forward=lambda p, b: transformer.forward_decoder(
-            p, cfg, b["tokens"], impl=impl, chunk=chunk)[0],
+            p, cfg, b["tokens"], impl=impl, chunk=chunk, remat=remat)[0],
+        loss=lambda p, b: transformer.loss_decoder(p, cfg, b, impl=impl,
+                                                   chunk=chunk, remat=remat),
         prefill=prefill,
         init_cache=lambda batch, max_len, dtype=torch.bfloat16:
             transformer.init_cache_decoder(cfg, batch, max_len, dtype, dev),

@@ -2,7 +2,11 @@
 
 Parameters are the JAX package's tree: ``params["layers"]`` holds every
 layer's weights stacked on a leading axis, as ``init_decoder`` makes them
-there, and each loop below takes layer ``i`` as a view. The KV cache keeps
+there, and each pass below takes all layers' views with one ``unbind(0)``
+per stacked leaf (``_layer_views``): its backward stacks the layers'
+gradients once, where indexing layer ``i`` as ``v[i]`` would write a
+zero-filled gradient the size of the whole stacked leaf for every layer
+(~4 GB of writes per layer at llama3.2-1b's full width). The KV cache keeps
 the JAX layout too: ``{"k", "v"}`` of shape (L, B, Smax, K, hd), so the
 tests compare caches directly. The MoE, VLM, SSM and hybrid families are
 not ported yet.
@@ -13,8 +17,9 @@ import torch
 
 from repro_torch.models.attention import (gqa_decode, gqa_forward, gqa_params,
                                           init_gqa_cache)
-from repro_torch.models.common import (apply_mlp, apply_norm, dense_init,
-                                       embed_tokens, mlp_params, norm_params)
+from repro_torch.models.common import (apply_mlp, apply_norm, cross_entropy,
+                                       dense_init, embed_tokens, mlp_params,
+                                       norm_params)
 
 
 def _check_family(cfg) -> None:
@@ -24,10 +29,28 @@ def _check_family(cfg) -> None:
             f"not yet ported to repro_torch; the dense GQA decoder is")
 
 
-def _layer(layers, i: int):
-    """Layer ``i``'s weights as views into the stacked tree."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+def _layer_views(layers, n: int):
+    """Every layer's weights as views into the stacked tree, one ``unbind``
+    per leaf: a list of ``n`` trees."""
+    def walk(node):
+        if isinstance(node, dict):
+            subs = {k: walk(v) for k, v in node.items()}
+            return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+        return node.unbind(0)
+
+    return walk(layers)
+
+
+def _maybe_remat(fn, remat: str):
+    """The reference's rematerialization switch. Only ``"none"`` is ported:
+    ``"full"`` and ``"dots"`` (``jax.checkpoint`` policies) wait for
+    ``torch.utils.checkpoint`` with a matching save policy."""
+    if remat == "none":
+        return fn
+    if remat in ("full", "dots"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported to repro_torch yet; use 'none'")
+    raise ValueError(f"unknown remat policy {remat!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -87,28 +110,38 @@ def _logits(params, cfg, h):
 
 
 def forward_decoder(params, cfg, tokens, *, impl="chunked", chunk=1024,
-                    return_cache=False):
+                    remat="none", return_cache=False):
     """Returns (logits, h), or (last-position logits, (h, cache)) when
     ``return_cache``; the cache is {"k", "v"} of shape (L, B, S, K, hd)."""
     _check_family(cfg)
+    block = _maybe_remat(dense_block, remat)
     B, S = tokens.shape
     h = embed_tokens(params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     positions = positions[None].expand(B, S)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for lp in _layer_views(params["layers"], cfg.n_layers):
         if return_cache:
-            h, kv = dense_block(lp, h, cfg, positions, impl, chunk, return_kv=True)
+            h, kv = block(lp, h, cfg, positions, impl, chunk, return_kv=True)
             ks.append(kv["k"])
             vs.append(kv["v"])
         else:
-            h = dense_block(lp, h, cfg, positions, impl, chunk)
+            h = block(lp, h, cfg, positions, impl, chunk)
     if return_cache:
         # prefill semantics: only the last position's logits are needed
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
         return _logits(params, cfg, h[:, -1:]), (h, cache)
     return _logits(params, cfg, h), h
+
+
+def loss_decoder(params, cfg, batch, *, impl="chunked", chunk=1024,
+                 remat="none"):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S). The dense
+    family has no aux loss and no MTP head."""
+    tokens = batch["tokens"]
+    logits, _ = forward_decoder(params, cfg, tokens, impl=impl, chunk=chunk,
+                                remat=remat)
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 def _last_logits(params, cfg, h, last_pos=None):
@@ -161,8 +194,7 @@ def decode_step_decoder(params, cfg, cache, tokens, cache_len, *, impl="chunked"
     _check_family(cfg)
     dimpl = "pallas" if impl == "pallas" else "naive"
     h = embed_tokens(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_layer_views(params["layers"], cfg.n_layers)):
         lcache = {"k": cache["k"][i], "v": cache["v"][i]}  # views: written in place
         x = apply_norm(lp["ln1"], h, cfg.norm)
         a, _ = gqa_decode(lp["attn"], x, lcache, cache_len, cfg, impl=dimpl)

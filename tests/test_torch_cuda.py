@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_backward as fb
 from repro_torch.kernels import ref
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -76,3 +77,112 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fa.flash_decode(torch.zeros(1, 1, 2, 16, device=dev),
                         torch.zeros(1, 4, 1, 16, device=dev),
                         torch.zeros(1, 4, 1, 256, device=dev), 2)
+
+
+BWD_CASES = [  # Sq, Sk, hd, causal, q_offset
+    (64, 64, 64, True, 0),
+    (67, 67, 64, True, 0),       # ragged tails of rows and keys
+    (37, 37, 16, False, 0),
+    (29, 69, 32, True, 40),      # q_offset: a query chunk at the end
+    (130, 130, 128, True, 0),
+    (48, 112, 32, False, 0),     # Sq != Sk
+    (300, 300, 64, False, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", CASES)
+@pytest.mark.parametrize("Sq,Sk,hd,causal,q_offset", BWD_CASES)
+def test_flash_bwd_matches_plain(dtype, lowp, Sq, Sk, hd, causal, q_offset):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk)
+    q, do = (torch.randn(2, 3, Sq, hd, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 3, Sk, hd, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    o, lse = ref.ref_flash_attention_fwd(q, k, v, causal=causal,
+                                         q_offset=q_offset, lowp=lowp)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(fb.launches)
+    dq = fb.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                         q_offset=q_offset, lowp=lowp)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                              q_offset=q_offset, lowp=lowp)
+    want_dq, want_dk, want_dv = ref.ref_flash_attention_bwd(
+        q, k, v, o, lse, do, causal=causal, q_offset=q_offset, lowp=lowp)
+    tol = BF16 if lowp else F32
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name}: {m}")
+    assert fb.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fb.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mha_grad_goes_through_the_kernels(dtype):
+    """autograd through the GQA broadcast and ``_FlashMHA`` on the card, held
+    against autograd through the plain attention on the same inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import naive_attention
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(2, 70, 8, 64, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(2, 70, 2, 64, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    w = torch.randn(2, 70, 8, 64, generator=g, device=dev)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        return torch.autograd.grad((out.float() * w).sum(), leaves)
+
+    before = fa.all_launches()
+    got = grads(lambda a, b, c: ops.flash_attention(a, b, c, causal=True))
+    after = fa.all_launches()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    want = grads(lambda a, b, c: naive_attention(a, b, c, causal=True))
+    tol = F32 if dtype == torch.float32 else BF16
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_a_misaligned_input():
+    dev = _device()
+    x = torch.zeros(1 * 2 * 8 * 16 + 1, device=dev)[1:].view(1, 2, 8, 16)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fb.flash_bwd_dq(x, x, x, x, lse, lse)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_goes_through_the_kernels():
+    """Two adam steps of the reduced llama3.2-1b through the kernels, held
+    against the same steps through the plain attention on the card."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import adam
+    dev = _device()
+    cfg = get_config("llama3.2-1b").reduced()
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 67)).astype(np.int32)
+    losses = {}
+    for impl in ("pallas", "naive"):
+        model = build_model(cfg, impl=impl, device=dev)
+        state = init_train_state(model, adam(), model.generator(0))
+        step = build_train_step(model, adam(), microbatch=2, lr=1e-3)
+        before = fa.all_launches()
+        losses[impl] = []
+        for _ in range(2):
+            state, metrics = step(state, {"tokens": tokens})
+            losses[impl].append(float(metrics["loss"]))
+        after = fa.all_launches()
+        n = cfg.n_layers * 2 * 2 if impl == "pallas" else 0  # layers x microbatches x steps
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert after[name] - before[name] == n, (impl, name)
+    np.testing.assert_allclose(losses["pallas"], losses["naive"], rtol=1e-5)
