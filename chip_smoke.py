@@ -49,17 +49,43 @@ Phases (any failure raises and the script exits non-zero):
    wall-clock latencies. At least one interference downgrade, every
    migration in place, every loss finite, and each step on the bf16 rung
    launches the backward kernels 16 times each.
+9. Paged serve: llama3.2-1b at full width, f32, 8 slots, max_seq 1024,
+   ``kv_layout="paged"`` with 16-position blocks, on the phase-4 requests
+   with half of them sharing a 128-token prefix and two of them identical
+   (prefix hits, skipped chunks, a read-only recompute and copy-on-write).
+   Served with ``attn_impl="pallas"`` and ``"naive"``; flash_decode_paged
+   launches > 0, prefill_chunks_skipped > 0, cow_copies >= 1, and both
+   streams meet phase 5's rule against a contiguous pallas run of the same
+   requests.
+10. Swap: the same paged run with ``admission_policy="swap"`` and the pool
+   cut to about half the worst-case demand of 8 residents: swap_outs > 0,
+   swap_ins == swap_outs, streams under the same rule against phase 9's.
+11. Speculative: ``draft_depth=4`` with the n-gram draft, contiguous and
+   paged, pallas, on the phase-4 requests: flash_decode_spec and
+   flash_decode_spec_paged launched > 0 on their own paths, streams under
+   the same rule against phase 4's (non-speculative greedy). Prints tokens
+   per verify pass, the acceptance rate and tok/s; the weights are random,
+   so no rate is required.
+
+Every path's launch counts are set to 0 just before its run and read just
+after. Phase 3 also holds the three paged and speculative kernels against
+their plain versions (B8 K8 G4 hd64, 64 blocks of 16, a shuffled table with
+out-of-range entries, ragged lengths including 0 and past the capacity,
+speculative windows of S = 2 and 5); their library yardsticks are one SDPA
+call with a boolean mask (speculative, contiguous) and a gather followed by
+SDPA (the paged two, two calls).
 
 Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
-...}`` and ``{"kernels": [...]}``, the card's name and power limit as
-``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device":
-{...}}``.
+...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}`` and
+``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
+gives them, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -80,6 +106,7 @@ LOGIT_TOL = 1e-3  # pallas vs naive logits differ by f32 summation order only
 
 SERVE = dict(slots=8, requests=16, prompt_lo=192, prompt_hi=320, gen=32,
              max_seq=1024, seed=0)
+PAGED = dict(block_size=16, shared_prefix=128, draft_depth=4)
 TRAIN = dict(batch=4, seq=512, steps=6, lr=3e-4, seed=0)
 LOSS_RTOL = 1e-3      # pallas vs naive per-step losses (f32 summation order)
 GRAD_RTOL = 1e-4      # first-step gradients, norm-wise
@@ -320,6 +347,146 @@ def check_flash_bwd(fb, ref):
     return dq_checks, dkv_checks
 
 
+def paged_inputs(g, dtype, B, K, hd, bs, T):
+    """Pools of B*T + 1 blocks and a shuffled (B, T) table over blocks
+    1..B*T with a few entries outside [0, NB-1] (wrapper and kernel clamp
+    them, as the plain version does)."""
+    NB = B * T + 1
+    kp, vp = (torch.randn(NB, bs, K, hd, generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    table = (torch.randperm(B * T, generator=g, device="cuda") + 1).reshape(B, T)
+    table[1, 3], table[5, 0], table[6, T - 1] = -7, NB + 11, 2 * NB
+    return kp, vp, table.to(torch.int32)
+
+
+def kernel_check(label, got, want, tol, *, ms, plain_ms, library_ms, nbytes,
+                 flops, lowp, **extra):
+    """One kernel-vs-plain comparison with its times and bound."""
+    err, ok = max_err(got, want, tol)
+    peak = BF16_FLOPS if lowp else F32_FLOPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    c = dict(extra, lowp=lowp, max_abs_err=err, tol=tol["atol"], ok=ok, ms=ms,
+             plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=max(by_bytes, by_ops) * 1e3,
+             bound_by="bytes" if by_bytes >= by_ops else "operations")
+    print(f"[kernels] {label} {c.get('dtype')} lowp={lowp}: max_abs_err={err:.3g} "
+          f"(tol {c['tol']}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library {library_ms:.4f} ms ({c['library_calls']}), bound "
+          f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+    return c
+
+
+DEC = dict(B=8, K=8, G=4, hd=64, bs=16, T=64)  # the paged serve run's shapes
+
+
+def check_flash_decode_paged(fa, ref, gather):
+    """Paged decode at the paged serve run's shape: B=8, K=8, G=4, hd=64,
+    64 blocks of 16 per row, ragged lengths including 0 and past T*bs."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B, K, G, hd, bs, T = (DEC[k] for k in ("B", "K", "G", "hd", "bs", "T"))
+    cap = bs * T
+    lens_list = [0, 1, 193, 300, 511, 700, 1024, 1030]
+    lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    checks = []
+    for dtype, lowp in [(torch.float32, False), (torch.bfloat16, True)]:
+        q = torch.randn(B, K, G, hd, generator=g, device="cuda").to(dtype)
+        kp, vp, table = paged_inputs(g, dtype, B, K, hd, bs, T)
+        out = fa.flash_decode_paged(q, kp, vp, table, lengths, lowp=lowp)
+        want = ref.ref_flash_decode_paged(q, kp, vp, table, lengths, lowp=lowp)
+        torch.cuda.synchronize()
+        check(not bool(out[0].any()), "flash_decode_paged: length-0 row not zero")
+        qh = q.reshape(B, K * G, 1, hd)
+        mask = (torch.arange(cap, device="cuda")[None, :]
+                < lengths.clamp(max=cap)[:, None].long())[:, None, None, :]
+
+        def library():  # gather the table's view, then one SDPA call
+            kh = gather(kp, table).transpose(1, 2)
+            vh = gather(vp, table).transpose(1, 2)
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        elt = q.element_size()
+        live = sum(min(n, cap) for n in lens_list)
+        nbytes = live * K * 2 * hd * elt + 2 * B * K * G * hd * elt + B * T * 4 + B * 4
+        checks.append(kernel_check(
+            "flash_decode_paged", out, want, BF16_TOL if lowp else F32_TOL,
+            shape=[B, K, G, hd, bs, T], lengths=lens_list,
+            dtype=str(dtype).replace("torch.", ""),
+            ms=time_ms(lambda: fa.flash_decode_paged(q, kp, vp, table, lengths,
+                                                     lowp=lowp)),
+            plain_ms=time_ms(lambda: ref.ref_flash_decode_paged(
+                q, kp, vp, table, lengths, lowp=lowp)),
+            library_ms=time_ms(library), library_calls="gather + SDPA, two calls",
+            nbytes=nbytes, flops=live * K * G * 4 * hd, lowp=lowp))
+    return checks
+
+
+def check_flash_decode_spec(fa, ref, gather, paged: bool):
+    """Speculative verify at the serve runs' shape, S = 5 (draft depth 4,
+    the serve runs' window) and S = 2: base lengths including 0, a window
+    past the capacity and an idle slot at it; contiguous Smax = 1024 or 64
+    blocks of 16."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(5 + paged)
+    B, K, G, hd, bs, T = (DEC[k] for k in ("B", "K", "G", "hd", "bs", "T"))
+    cap = bs * T
+    base_list = [0, 1, 193, 300, 511, 700, 1021, 1024]
+    base = torch.tensor(base_list, dtype=torch.int32, device="cuda")
+    name = "flash_decode_spec_paged" if paged else "flash_decode_spec"
+    kernel = getattr(fa, name)
+    plain = getattr(ref, "ref_" + name)
+    checks = []
+    for S in (5, 2):
+        for dtype, lowp in [(torch.float32, False), (torch.bfloat16, True)]:
+            q = torch.randn(B, K, S, G, hd, generator=g, device="cuda").to(dtype)
+            if paged:
+                kp, vp, table = paged_inputs(g, dtype, B, K, hd, bs, T)
+                args = (q, kp, vp, table, base)
+            else:
+                kc, vc = (torch.randn(B, cap, K, hd, generator=g,
+                                      device="cuda").to(dtype) for _ in range(2))
+                args = (q, kc, vc, base)
+            out = kernel(*args, lowp=lowp)
+            want = plain(*args, lowp=lowp)
+            torch.cuda.synchronize()
+            # SDPA over (B, H, S, hd) queries, head h = k*G + g, with the
+            # per-row causal window as a boolean (B, 1, S, cap) mask
+            qh = q.permute(0, 1, 3, 2, 4).reshape(B, K * G, S, hd)
+            limit = (base[:, None].long() + torch.arange(S, device="cuda") + 1
+                     ).clamp(max=cap)
+            mask = (torch.arange(cap, device="cuda")[None, None, :]
+                    < limit[:, :, None])[:, None]
+            if paged:
+                def library():
+                    kh = gather(kp, table).transpose(1, 2)
+                    vh = gather(vp, table).transpose(1, 2)
+                    return F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+                calls = "gather + SDPA, two calls"
+            else:
+                kh, vh = (x.transpose(1, 2) for x in (kc, vc))
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+                calls = "SDPA with a boolean mask, one call"
+            elt = q.element_size()
+            live = sum(min(n + S, cap) for n in base_list)       # keys read
+            pairs = int(limit.sum()) * K * G                     # (row, key) pairs
+            nbytes = live * K * 2 * hd * elt + 2 * B * K * S * G * hd * elt + B * 4 \
+                + (B * T * 4 if paged else 0)
+            checks.append(kernel_check(
+                f"{name} S={S}", out, want, BF16_TOL if lowp else F32_TOL,
+                shape=[B, K, S, G, hd] + ([bs, T] if paged else [cap]),
+                lengths=base_list, dtype=str(dtype).replace("torch.", ""),
+                ms=time_ms(lambda: kernel(*args, lowp=lowp)),
+                plain_ms=time_ms(lambda: plain(*args, lowp=lowp)),
+                library_ms=time_ms(library), library_calls=calls,
+                nbytes=nbytes, flops=pairs * 4 * hd, lowp=lowp))
+    return checks
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: serve llama3.2-1b at full width
 # ---------------------------------------------------------------------------
@@ -335,18 +502,22 @@ def make_requests(serve, vocab):
             for u in range(SERVE["requests"])]
 
 
-def run_engine(serve, model, params, reqs):
+def run_engine(serve, model, params, reqs, **engine_kw):
     engine = serve.ContinuousBatchingEngine(model, params,
                                             max_batch=SERVE["slots"],
-                                            max_seq=SERVE["max_seq"])
+                                            max_seq=SERVE["max_seq"],
+                                            **engine_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    done = engine.run(reqs)
+    done = engine.run([serve.Request(uid=r.uid, prompt=r.prompt,
+                                     max_new_tokens=r.max_new_tokens)
+                       for r in reqs])
     torch.cuda.synchronize()
     return done, engine, time.perf_counter() - t0
 
 
-def profile_decode(serve, model, params, reqs, steps: int = 4):
+def profile_decode(serve, model, params, reqs, steps: int = 4, label="",
+                   budget: int = 6, **engine_kw):
     """Where a batched decode step's time goes: admit one request per slot,
     then trace ``steps`` decode steps with torch.profiler. Prints the host
     time per step, the device time per step (sum of kernel times) and the
@@ -355,10 +526,11 @@ def profile_decode(serve, model, params, reqs, steps: int = 4):
     from torch.profiler import ProfilerActivity, profile
     engine = serve.ContinuousBatchingEngine(model, params,
                                             max_batch=SERVE["slots"],
-                                            max_seq=SERVE["max_seq"])
+                                            max_seq=SERVE["max_seq"],
+                                            **engine_kw)
     for r in reqs[:SERVE["slots"]]:
         engine.submit(serve.Request(uid=r.uid, prompt=r.prompt,
-                                    max_new_tokens=steps + 2))
+                                    max_new_tokens=budget))
     engine.step()  # admits every slot and runs the first decode
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -370,13 +542,42 @@ def profile_decode(serve, model, params, reqs, steps: int = 4):
     # kernels only: an aten op's own entry repeats its kernels' device time
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    print(f"[profile] decode step ({model.build_kwargs['impl']}): host "
+    print(f"[profile] decode step ({model.build_kwargs['impl']}{label}): host "
           f"{host_ms:.3f} ms/step, device busy {dev_ms:.3f} ms/step "
           f"({100 * dev_ms / host_ms:.1f}% of the step)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
     return host_ms, dev_ms
+
+
+def profile_paged_prefill(serve, model, params, req, **engine_kw):
+    """Where chunked paged prefill's time goes: one request with a budget of
+    one token, so one engine step is its admission (every prompt chunk) and
+    nothing else, traced with torch.profiler. Returns (chunks, host ms per
+    chunk, device busy ms per chunk)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    engine = serve.ContinuousBatchingEngine(model, params,
+                                            max_batch=SERVE["slots"],
+                                            max_seq=SERVE["max_seq"], **engine_kw)
+    engine.submit(serve.Request(uid=req.uid, prompt=req.prompt, max_new_tokens=1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    n = engine.prefill_chunks
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[profile] paged prefill of {len(req.prompt)} tokens: {n} chunks, host "
+          f"{host_ms / n:.3f} ms/chunk, device busy {dev_ms / n:.3f} ms/chunk "
+          f"({100 * dev_ms / host_ms:.1f}% of the admission)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} ms/chunk "
+              f"{e.count // n:5d} calls/chunk  {e.key[:90]}")
+    return n, host_ms / n, dev_ms / n
 
 
 @torch.inference_mode()
@@ -393,6 +594,157 @@ def top2_margin(model, params, prompt, tokens, index):
         logits, cache = model.decode_step(params, cache, tok, len(prompt) + i)
     top = logits[0, -1].float().topk(2).values
     return float(top[0] - top[1])
+
+
+def shared_prefix_requests(serve, reqs):
+    """The phase-4 requests with the first half sharing one 128-token prefix
+    and request 1 a copy of request 0, whose length is kept off a block
+    boundary so its first decode lands in the shared tail block (COW)."""
+    prefix = reqs[0].prompt[:PAGED["shared_prefix"]]
+    out = []
+    for r in reqs:
+        p = r.prompt.copy()
+        if r.uid < len(reqs) // 2:
+            p[:len(prefix)] = prefix
+        out.append(serve.Request(uid=r.uid, prompt=p,
+                                 max_new_tokens=r.max_new_tokens))
+    if len(out[0].prompt) % PAGED["block_size"] == 0:
+        out[0].prompt = out[0].prompt[:-1]
+    out[1].prompt = out[0].prompt.copy()
+    return out
+
+
+def same_streams(label, got, want, naive, params, reqs):
+    """Phase 5's rule: streams token-identical, or diverging only where the
+    plain path's top-2 logit margin is below LOGIT_TOL. Returns the number
+    of identical streams."""
+    check(sorted(got) == sorted(want), f"{label}: requests missing")
+    identical = 0
+    by_uid = {r.uid: r for r in reqs}
+    for u in sorted(want):
+        a, b = got[u], want[u]
+        if a == b:
+            identical += 1
+            continue
+        check(len(a) == len(b), f"{label}: uid {u} has {len(a)} tokens, not {len(b)}")
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        margin = top2_margin(naive, params, by_uid[u].prompt, b, i)
+        print(f"[{label}] uid {u} diverges at token {i}: {a[i]} vs {b[i]}, "
+              f"plain top-2 margin {margin:.3g} (tolerance {LOGIT_TOL})")
+        check(margin < LOGIT_TOL, f"{label}: uid {u} diverges where the margin "
+              f"is {margin}")
+    print(f"[{label}] {identical}/{len(want)} streams token-identical", flush=True)
+    return identical
+
+
+def streams_of(done):
+    return {u: f.tokens for u, f in done.items()}
+
+
+def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams):
+    """Phases 9-11. Returns (the serve_paged and serve_spec JSON objects,
+    each new path's launch counts)."""
+    model = build_model(cfg, impl="pallas", device="cuda")
+    params = model.init(model.generator(0))
+    naive = build_model(cfg, impl="naive", device="cuda")
+    paged_kw = dict(kv_layout="paged", block_size=PAGED["block_size"])
+    launches = {}
+
+    def run(path, m, rs, **kw):
+        fa.reset_launches()
+        done, engine, wall = run_engine(serve, m, params, rs, **kw)
+        counts = dict(fa.launches)
+        if path:
+            launches[path] = counts
+        st = engine.stats()
+        print(f"[{path or 'ref'}] {m.build_kwargs['impl']} {kw}: "
+              f"{engine.tokens_out} tokens in {wall:.3f} s "
+              f"({engine.tokens_out / wall:.1f} tok/s), {engine.decode_steps} "
+              f"steps, launches {counts}", flush=True)
+        return streams_of(done), engine, wall, st
+
+    # -- phase 9: paged serve with prefix sharing ----------------------------
+    shared = shared_prefix_requests(serve, reqs)
+    ref_streams, _, _, _ = run(None, model, shared)  # contiguous pallas
+    paged, eng_p, wall_p, st_p = run("serve_paged", model, shared, **paged_kw)
+    check(launches["serve_paged"]["flash_decode_paged"] > 0,
+          "the paged run did not launch flash_decode_paged")
+    check(st_p["prefill_chunks_skipped"] > 0, f"no prefix chunk skipped: {st_p}")
+    check(st_p["cow_copies"] >= 1, f"no copy-on-write: {st_p}")
+    ident_p = same_streams("serve_paged", paged, ref_streams, naive, params, shared)
+    paged_n, eng_pn, wall_pn, _ = run("serve_paged_naive", naive, shared, **paged_kw)
+    ident_pn = same_streams("serve_paged_naive", paged_n, ref_streams, naive,
+                            params, shared)
+    prof_p = profile_decode(serve, model, params, reqs, label=", paged", **paged_kw)
+    prof_pre = profile_paged_prefill(serve, model, params, reqs[0], **paged_kw)
+
+    # -- phase 10: swap over a pool cut to half the worst case ----------------
+    bs = PAGED["block_size"]
+    worst = sorted(-(-min(len(r.prompt) + r.max_new_tokens, SERVE["max_seq"]) // bs)
+                   for r in shared)
+    demand = sum(worst[-SERVE["slots"]:])
+    num_blocks = demand // 2 + 1
+    swapped, eng_s, wall_s, st_s = run(
+        "swap", model, shared, admission_policy="swap", num_blocks=num_blocks,
+        **paged_kw)
+    check(st_s["swap_outs"] > 0 and st_s["swap_ins"] == st_s["swap_outs"]
+          and st_s["swapped"] == 0, f"swap counts: {st_s}")
+    check(launches["swap"]["flash_decode_paged"] > 0, "swap run: no paged kernel")
+    ident_s = same_streams("swap", swapped, paged, naive, params, shared)
+
+    # -- phase 11: speculative, contiguous and paged --------------------------
+    spec = {}
+    for path, kw, kname in (("spec_contig", {}, "flash_decode_spec"),
+                            ("spec_paged", paged_kw, "flash_decode_spec_paged")):
+        streams, eng, wall, st = run(path, model, reqs,
+                                     draft_depth=PAGED["draft_depth"], **kw)
+        check(launches[path][kname] > 0, f"{path} did not launch {kname}")
+        ident = same_streams(path, streams, contig_streams, naive, params, reqs)
+        # tokens each sequence gains per verify pass (the first token of a
+        # request comes from its prefill)
+        per_pass = (eng.tokens_out - len(reqs)) / max(1, st["spec_rounds"])
+        print(f"[{path}] {per_pass:.3f} tokens per sequence per verify pass, "
+              f"{eng.decode_steps} verify passes, acceptance "
+              f"{st['spec_accepted']}/{st['spec_drafted']} = "
+              f"{st['spec_acceptance']:.4f}, {eng.tokens_out / wall:.1f} tok/s",
+              flush=True)
+        spec[path] = {"tok_s": eng.tokens_out / wall, "wall_s": wall,
+                      "tokens": eng.tokens_out, "verify_passes": eng.decode_steps,
+                      "spec_rounds": st["spec_rounds"],
+                      "tokens_per_verify_pass": per_pass,
+                      "spec_accepted": st["spec_accepted"],
+                      "spec_drafted": st["spec_drafted"],
+                      "acceptance": st["spec_acceptance"],
+                      "identical_streams": ident, "launches": launches[path]}
+    prof_spec = profile_decode(serve, model, params, reqs, label=", spec paged",
+                               budget=60, draft_depth=PAGED["draft_depth"],
+                               **paged_kw)
+    spec["decode_step_profile_paged"] = {"host_ms": prof_spec[0],
+                                         "device_ms": prof_spec[1]}
+    spec["draft_depth"] = PAGED["draft_depth"]
+
+    paged_out = {
+        "block_size": bs, "num_blocks": st_p["pool"]["num_blocks"],
+        "tok_s": eng_p.tokens_out / wall_p, "wall_s": wall_p,
+        "naive_tok_s": eng_pn.tokens_out / wall_pn,
+        "tokens": eng_p.tokens_out, "decode_steps": eng_p.decode_steps,
+        "identical_streams": ident_p, "naive_identical_streams": ident_pn,
+        "prefill_chunks": st_p["prefill_chunks"],
+        "prefill_chunks_skipped": st_p["prefill_chunks_skipped"],
+        "cow_copies": st_p["cow_copies"], "peak_blocks": st_p["pool"]["peak_blocks_in_use"],
+        "prefix_hit_rate": st_p["pool"]["prefix"]["hit_rate"],
+        "decode_step_host_ms": prof_p[0], "decode_step_device_ms": prof_p[1],
+        "prefill_profile": {"chunks": prof_pre[0], "host_ms_per_chunk": prof_pre[1],
+                            "device_ms_per_chunk": prof_pre[2]},
+        "swap": {"num_blocks": num_blocks, "worst_case_demand": demand,
+                 "tok_s": eng_s.tokens_out / wall_s, "swap_outs": st_s["swap_outs"],
+                 "swap_ins": st_s["swap_ins"], "identical_streams": ident_s,
+                 "decode_steps": eng_s.decode_steps},
+        "launches": {p: launches[p] for p in ("serve_paged", "serve_paged_naive", "swap")},
+    }
+    del model, naive, params
+    free_cuda()
+    return paged_out, spec, launches
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +975,7 @@ def main() -> int:
     from repro_torch.kernels import flash_backward as fb
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from repro_torch.paging import gather_paged_kv
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -635,21 +988,27 @@ def main() -> int:
 
     # -- phase 2: build -------------------------------------------------------
     t0 = time.perf_counter()
-    libs = ["flash_fwd", "flash_bwd", "flash_decode"]
+    libs = ["flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
+            "flash_decode_spec"]
     backend.build_libraries(libs)
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(libs)} for sm_90a in {build_s:.1f} s", flush=True)
-    for lib in libs:
+    for lib in libs:  # -Xptxas -v: registers and spills per instantiation
         log = backend.library_path(lib).with_suffix(".log").read_text()
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {lib}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"[build] {lib}: {len(regs)} kernels, registers "
+              f"{min(regs)}-{max(regs)}, spill stores up to {max(spills)} bytes "
+              f"({sum(1 for x in spills if x)} kernels spill)")
 
     # -- phase 3: kernels against their plain versions -------------------------
     fwd = check_flash_fwd(fa, ref)
     dec = check_flash_decode(fa, ref)
     bwd_dq, bwd_dkv = check_flash_bwd(fb, ref)
-    for c in fwd + dec + bwd_dq + bwd_dkv:
+    dec_paged = check_flash_decode_paged(fa, ref, gather_paged_kv)
+    spec = check_flash_decode_spec(fa, ref, gather_paged_kv, paged=False)
+    spec_paged = check_flash_decode_spec(fa, ref, gather_paged_kv, paged=True)
+    for c in fwd + dec + bwd_dq + bwd_dkv + dec_paged + spec + spec_paged:
         check(c["ok"], f"kernel disagrees with its plain version: {c}")
 
     # -- phase 4: serve with the kernels ---------------------------------------
@@ -698,19 +1057,8 @@ def main() -> int:
     done_n, engine_n, wall_n = run_engine(serve, naive, params, reqs)
     print(f"[serve] naive: {engine_n.tokens_out} tokens in {wall_n:.3f} s "
           f"({engine_n.tokens_out / wall_n:.1f} tok/s)", flush=True)
-    identical = 0
-    for u in sorted(done):
-        a, b = done[u].tokens, done_n[u].tokens
-        if a == b:
-            identical += 1
-            continue
-        i = next(j for j in range(len(a)) if a[j] != b[j])
-        margin = top2_margin(naive, params, reqs[u].prompt, b, i)
-        print(f"[serve] uid {u} diverges at token {i}: pallas {a[i]} vs naive "
-              f"{b[i]}, plain top-2 margin {margin:.3g} (tolerance {LOGIT_TOL})")
-        check(margin < LOGIT_TOL, f"uid {u} diverges where the margin is {margin}")
-    print(f"[serve] {identical}/{len(done)} streams token-identical to the "
-          f"plain path", flush=True)
+    identical = same_streams("serve", streams_of(done), streams_of(done_n),
+                             naive, params, reqs)
 
     serve_out = {
         "tok_s": tok_s, "wall_s": wall, "tokens": engine.tokens_out,
@@ -719,10 +1067,13 @@ def main() -> int:
         "identical_streams": identical,
         "decode_step_host_ms": {k: v[0] for k, v in prof.items()},
         "decode_step_device_ms": {k: v[1] for k, v in prof.items()}}
+    contig_streams = streams_of(done)
     del model, naive, params, engine, engine_n, done, done_n, lk, ln, ck, cn
     free_cuda()
 
     train_out, train_launches = train_phases(fa, build_model, cfg)
+    paged_out, spec_out, path_launches = paged_and_spec_phases(
+        fa, serve, build_model, cfg, reqs, contig_streams)
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -755,10 +1106,33 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:438 (_decode_kernel, "
               "pallas_call at :536)", dec,
               {"serve": serve_launches["flash_decode"]}),
+        entry("flash_decode_paged", "src/repro_torch/csrc/flash_decode_paged.cu",
+              "src/repro/kernels/flash_attention.py:551 (_decode_paged_kernel, "
+              "pallas_call at :616)", dec_paged,
+              {p: path_launches[p]["flash_decode_paged"]
+               for p in ("serve_paged", "swap")}),
+        entry("flash_decode_spec", "src/repro_torch/csrc/flash_decode_spec.cu",
+              "src/repro/kernels/flash_attention.py:631 (_spec_decode_kernel, "
+              "pallas_call at :736)", spec,
+              {"spec_contig": path_launches["spec_contig"]["flash_decode_spec"]}),
+        entry("flash_decode_spec_paged", "src/repro_torch/csrc/flash_decode_spec.cu",
+              "src/repro/kernels/flash_attention.py:746 "
+              "(_spec_decode_paged_kernel, pallas_call at :801)", spec_paged,
+              {"spec_paged":
+               path_launches["spec_paged"]["flash_decode_spec_paged"]}),
     ]
+    # the paths that ran after phase 4 launched these too
+    for e in kernels:
+        for p in ("spec_contig", "serve_paged", "swap", "spec_paged"):
+            n = path_launches[p].get(e["name"], 0)
+            if n and p not in e["launches_by_path"]:
+                e["launches_by_path"][p] = n
+        e["launches"] = sum(e["launches_by_path"].values())
     print(json.dumps({"serve": serve_out}))
     print(json.dumps({"train": dict(train_out, build_s=build_s,
                                     seconds_total=time.perf_counter() - t_start)}))
+    print(json.dumps({"serve_paged": paged_out}))
+    print(json.dumps({"serve_spec": spec_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

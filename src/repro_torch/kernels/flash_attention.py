@@ -1,7 +1,10 @@
 """Flash-attention wrappers around the hand-written Hopper kernels.
 
-  flash_fwd      csrc/flash_fwd.cu     replaces _fwd_kernel    (prefill, training forward)
-  flash_decode   csrc/flash_decode.cu  replaces _decode_kernel (every decode)
+  flash_fwd                csrc/flash_fwd.cu           replaces _fwd_kernel    (prefill, training forward)
+  flash_decode             csrc/flash_decode.cu        replaces _decode_kernel (contiguous decode)
+  flash_decode_paged       csrc/flash_decode_paged.cu  replaces _decode_paged_kernel (paged decode)
+  flash_decode_spec        csrc/flash_decode_spec.cu   replaces _spec_decode_kernel (speculative verify)
+  flash_decode_spec_paged  csrc/flash_decode_spec.cu   replaces _spec_decode_paged_kernel (paged verify)
 
 and ``kernels/flash_backward.py`` wraps the training backward's two,
 ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``).
@@ -21,9 +24,10 @@ two. Plain-version calls on the CPU do not count.
 ``flash_attention_mha`` is differentiable: ``_FlashMHA`` is the
 counterpart of the JAX package's ``_flash_mha`` custom_vjp. Its forward runs
 ``flash_fwd`` and saves q, k, v, o and lse; its backward is
-``flash_backward.flash_attention_bwd``. ``flash_attention_fwd_lse`` and
-``flash_decode`` are forward only, as in the reference, and raise on an
-input that requires grad.
+``flash_backward.flash_attention_bwd``. ``flash_attention_fwd_lse`` and the
+decode wrappers are forward only, as in the reference, and raise on an
+input that requires grad. The decode wrappers drop the reference's
+``block_k`` and ``interpret`` (TPU tiling and Pallas interpret mode).
 """
 from __future__ import annotations
 
@@ -35,9 +39,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.backend import attn_bf16, check_launch, load_library
-from repro_torch.kernels.ref import ref_flash_attention_fwd, ref_flash_decode
+from repro_torch.kernels.ref import (ref_flash_attention_fwd, ref_flash_decode,
+                                     ref_flash_decode_paged,
+                                     ref_flash_decode_spec,
+                                     ref_flash_decode_spec_paged)
 
-launches = {"flash_fwd": 0, "flash_decode": 0}
+launches = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0,
+            "flash_decode_spec": 0, "flash_decode_spec_paged": 0}
 
 FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims flash_{fwd,bwd}.cu are instantiated for
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -80,6 +88,36 @@ def _decode_lib():
     lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
     lib.flash_decode_max_smem_bytes.argtypes = []
     lib.flash_decode_max_smem_bytes.restype = _I
+    return lib
+
+
+@functools.cache
+def _decode_paged_lib():
+    lib = load_library("flash_decode_paged")
+    lib.flash_decode_paged.argtypes = [_P] * 6 + [_I] * 8 + \
+        [ctypes.c_float, _I, _I, _I, _P]
+    lib.flash_decode_paged.restype = _I
+    lib.flash_decode_paged_smem_bytes.argtypes = [_I] * 4
+    lib.flash_decode_paged_smem_bytes.restype = ctypes.c_longlong
+    lib.flash_decode_paged_max_smem_bytes.argtypes = []
+    lib.flash_decode_paged_max_smem_bytes.restype = _I
+    return lib
+
+
+@functools.cache
+def _spec_lib():
+    lib = load_library("flash_decode_spec")
+    lib.flash_decode_spec.argtypes = [_P] * 5 + [_I] * 7 + \
+        [ctypes.c_float, _I, _I, _I, _P]
+    lib.flash_decode_spec.restype = _I
+    lib.flash_decode_spec_paged.argtypes = [_P] * 6 + [_I] * 9 + \
+        [ctypes.c_float, _I, _I, _I, _P]
+    lib.flash_decode_spec_paged.restype = _I
+    lib.flash_decode_spec_smem_bytes.argtypes = [_I] * 4
+    lib.flash_decode_spec_smem_bytes.restype = ctypes.c_longlong
+    for fn in ("flash_decode_spec_max_smem_bytes", "flash_decode_spec_max_rows"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = _I
     return lib
 
 
@@ -217,8 +255,49 @@ def flash_attention_mha(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 
 # ---------------------------------------------------------------------------
-# decode: single query token, per-sequence valid lengths
+# decode: single query token or a window of draft positions, per-sequence
+# valid lengths, over a contiguous or a paged cache
 # ---------------------------------------------------------------------------
+
+
+def _lengths(lengths, B: int, device) -> torch.Tensor:
+    """(B,) int32 lengths on ``device`` from an int scalar or a (B,) vector."""
+    lengths = torch.as_tensor(lengths, device=device)
+    if lengths.dim() > 1 or lengths.dtype.is_floating_point:
+        raise ValueError("lengths must be an int scalar or a (B,) vector")
+    return lengths.to(torch.int32).expand(B).contiguous()
+
+
+def _table(block_table, B: int, num_blocks: int, device) -> torch.Tensor:
+    """(B, T) int32 block table on ``device``, clipped to [0, num_blocks-1]
+    as the reference clips it."""
+    table = torch.as_tensor(block_table, device=device)
+    if table.dim() != 2 or table.shape[0] != B or table.shape[1] < 1 or \
+            table.dtype.is_floating_point:
+        raise ValueError(f"block_table must be a (B={B}, T) int table, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    return table.to(torch.int32).clamp(0, num_blocks - 1).contiguous()
+
+
+def _check_decode_inputs(what: str, q, k, v) -> None:
+    _check_no_grad(what, q, k, v)
+    _check_dtype(q, k, v)
+    _check_device(q, k, v)
+
+
+def _check_kernel_geometry(what: str, need: int, limit: int, hd: int, hdv: int,
+                           k: torch.Tensor, extra: str = "") -> None:
+    """Refuse what the decode kernels do not take: hd not a multiple of 4,
+    hdv above 128, more shared memory than a block may use (the MLA latent
+    geometry, G=H, hd=576, hdv=512, needs another tiling), or a K cache not
+    aligned to the kernels' 4-element loads."""
+    if hd % 4 or hdv > 128 or need > limit:
+        raise ValueError(f"{what} takes hd % 4 == 0, hdv <= 128 and at most "
+                         f"{limit} bytes of shared memory; got hd={hd}, "
+                         f"hdv={hdv}{extra} ({need} bytes)")
+    if k.data_ptr() % (4 * k.element_size()):
+        raise ValueError(f"{what} reads K rows 4 elements at a time: the "
+                         f"cache must be aligned to 4 elements")
 
 
 def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
@@ -240,30 +319,19 @@ def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    _check_no_grad("flash_decode", q, k, v)
-    _check_dtype(q, k, v)
+    _check_decode_inputs("flash_decode", q, k, v)
     lowp = attn_bf16(lowp)
-    lengths = torch.as_tensor(lengths, device=q.device)
-    if lengths.dim() > 1 or lengths.dtype.is_floating_point:
-        raise ValueError("lengths must be an int scalar or a (B,) vector")
-    lengths = lengths.to(torch.int32).expand(B).contiguous()
-    if _check_device(q, k, v) == "cpu":
+    lengths = _lengths(lengths, B, q.device)
+    if q.device.type == "cpu":
         return ref_flash_decode(q, k, v, lengths, scale=scale, lowp=lowp)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, K, G, hdv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     lib = _decode_lib()
-    need = lib.flash_decode_smem_bytes(G, hd, hdv)
-    if hd % 4 or hdv > 128 or need > lib.flash_decode_max_smem_bytes():
-        # the MLA latent geometry (G=H, hd=576, hdv=512) needs another tiling
-        raise ValueError(f"flash_decode takes hd % 4 == 0, hdv <= 128 and at "
-                         f"most {lib.flash_decode_max_smem_bytes()} bytes of "
-                         f"shared memory; got G={G}, hd={hd}, hdv={hdv} "
-                         f"({need} bytes)")
-    if k.data_ptr() % (4 * k.element_size()):
-        raise ValueError("flash_decode reads K rows 4 elements at a time: the "
-                         "cache must be aligned to 4 elements")
+    _check_kernel_geometry("flash_decode", lib.flash_decode_smem_bytes(G, hd, hdv),
+                           lib.flash_decode_max_smem_bytes(), hd, hdv, k,
+                           f", G={G}")
     device, stream = _stream_args(q)
     rc = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           lengths.data_ptr(), out.data_ptr(), B, K, G, Smax,
@@ -272,4 +340,167 @@ def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
                           stream)
     check_launch(lib, rc, "flash_decode")
     launches["flash_decode"] += 1
+    return out
+
+
+def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
+                       scale: Optional[float] = None,
+                       lowp: Optional[bool] = None):
+    """Single-query flash decode over a paged (block-pooled) KV cache.
+
+    q: (B, K, G, hd) — grouped query heads, as in ``flash_decode``.
+    k_pool: (num_blocks, block_size, K, hd)  v_pool: (..., hdv) — physical
+       KV blocks shared by all sequences (no batch dimension).
+    block_table: (B, T) int32 — logical block j of sequence b lives in
+       physical block ``block_table[b, j]``; rows may point unused tail
+       entries at any valid block (they are clamped and predicated away).
+    lengths: (B,) int32 — row b attends to virtual positions < lengths[b]
+       (position p lives at offset p % block_size of logical block
+       p // block_size), clamped to T * block_size; rows with length 0
+       produce zeros.
+
+    The kernel translates each position through the row's table, staged in
+    shared memory: identical math to ``flash_decode`` on the contiguous
+    cache the table describes. Returns (B, K, G, hdv).
+    """
+    B, K, G, hd = q.shape
+    NB, bs = k_pool.shape[0], k_pool.shape[1]
+    hdv = v_pool.shape[-1]
+    if k_pool.shape != (NB, bs, K, hd) or v_pool.shape[:3] != (NB, bs, K):
+        raise ValueError(f"q {tuple(q.shape)} does not match pools "
+                         f"k {tuple(k_pool.shape)} / v {tuple(v_pool.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    _check_decode_inputs("flash_decode_paged", q, k_pool, v_pool)
+    lowp = attn_bf16(lowp)
+    lengths = _lengths(lengths, B, q.device)
+    table = _table(block_table, B, NB, q.device)
+    if q.device.type == "cpu":
+        return ref_flash_decode_paged(q, k_pool, v_pool, table, lengths,
+                                      scale=scale, lowp=lowp)
+    T = table.shape[1]
+    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
+    out = torch.empty((B, K, G, hdv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _decode_paged_lib()
+    _check_kernel_geometry(
+        "flash_decode_paged", lib.flash_decode_paged_smem_bytes(G, hd, hdv, T),
+        lib.flash_decode_paged_max_smem_bytes(), hd, hdv, k_pool,
+        f", G={G}, T={T}")
+    device, stream = _stream_args(q)
+    rc = lib.flash_decode_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, K, G, NB, bs, T, hd, hdv,
+        float(scale), int(q.dtype == torch.bfloat16), int(lowp), device,
+        stream)
+    check_launch(lib, rc, "flash_decode_paged")
+    launches["flash_decode_paged"] += 1
+    return out
+
+
+def _spec_geometry(what: str, lib, S: int, G: int, hd: int, hdv: int, T: int,
+                   k) -> None:
+    rows = lib.flash_decode_spec_max_rows()
+    if S * G > rows:
+        raise ValueError(f"{what} verifies at most {rows} rows (S*G) per "
+                         f"block; got S={S} x G={G} = {S * G}")
+    _check_kernel_geometry(what, lib.flash_decode_spec_smem_bytes(S * G, hd, hdv, T),
+                           lib.flash_decode_spec_max_smem_bytes(), hd, hdv, k,
+                           f", S*G={S * G}" + (f", T={T}" if T else ""))
+
+
+def flash_decode_spec(q, k, v, lengths, *, scale: Optional[float] = None,
+                      lowp: Optional[bool] = None):
+    """Multi-token speculative verify over a ragged contiguous KV cache.
+
+    q: (B, K, S, G, hd) — S draft positions' query heads, grouped per KV
+       head as in ``flash_decode`` (GQA: G = H // K).
+    k: (B, Smax, K, hd)   v: (B, Smax, K, hdv) — cache buffers with the S
+       draft tokens' KV already scattered at positions
+       lengths[b]..lengths[b]+S-1.
+    lengths: (B,) int32 — BASE valid counts (before the drafts); draft
+       position qi of row b attends cache positions < lengths[b] + qi + 1,
+       clamped to Smax.
+
+    One block per (b, KV head) verifies all S positions at once, with the
+    causal mask applied per row (r = qi*G + g) inside the key chunks; S*G is
+    at most the kernel's row ceiling (64). Returns (B, K, S, G, hdv).
+    Serving path only (no gradient).
+    """
+    B, K, S, G, hd = q.shape
+    Smax = k.shape[1]
+    hdv = v.shape[-1]
+    if k.shape != (B, Smax, K, hd) or v.shape[:3] != (B, Smax, K):
+        raise ValueError(f"q {tuple(q.shape)} does not match cache "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    _check_decode_inputs("flash_decode_spec", q, k, v)
+    lowp = attn_bf16(lowp)
+    lengths = _lengths(lengths, B, q.device)
+    if q.device.type == "cpu":
+        return ref_flash_decode_spec(q, k, v, lengths, scale=scale, lowp=lowp)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty((B, K, S, G, hdv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _spec_lib()
+    _spec_geometry("flash_decode_spec", lib, S, G, hd, hdv, 0, k)
+    device, stream = _stream_args(q)
+    rc = lib.flash_decode_spec(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               lengths.data_ptr(), out.data_ptr(), B, K, S, G,
+                               Smax, hd, hdv, float(scale),
+                               int(q.dtype == torch.bfloat16), int(lowp),
+                               device, stream)
+    check_launch(lib, rc, "flash_decode_spec")
+    launches["flash_decode_spec"] += 1
+    return out
+
+
+def flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
+                            scale: Optional[float] = None,
+                            lowp: Optional[bool] = None):
+    """Multi-token speculative verify over a paged (block-pooled) KV cache.
+
+    q: (B, K, S, G, hd) — S draft positions, grouped as in
+       ``flash_decode_spec``. k_pool/v_pool: (num_blocks, block_size, K, .)
+       physical blocks; block_table: (B, T) int32 with blocks mapped through
+       position lengths[b] + S - 1 (the engine appends draft positions before
+       the verify call, so boundary blocks already exist).
+    lengths: (B,) int32 BASE valid counts, as in ``flash_decode_spec``;
+       limits are clamped to T * block_size.
+
+    Returns (B, K, S, G, hdv).
+    """
+    B, K, S, G, hd = q.shape
+    NB, bs = k_pool.shape[0], k_pool.shape[1]
+    hdv = v_pool.shape[-1]
+    if k_pool.shape != (NB, bs, K, hd) or v_pool.shape[:3] != (NB, bs, K):
+        raise ValueError(f"q {tuple(q.shape)} does not match pools "
+                         f"k {tuple(k_pool.shape)} / v {tuple(v_pool.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    _check_decode_inputs("flash_decode_spec_paged", q, k_pool, v_pool)
+    lowp = attn_bf16(lowp)
+    lengths = _lengths(lengths, B, q.device)
+    table = _table(block_table, B, NB, q.device)
+    if q.device.type == "cpu":
+        return ref_flash_decode_spec_paged(q, k_pool, v_pool, table, lengths,
+                                           scale=scale, lowp=lowp)
+    T = table.shape[1]
+    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
+    out = torch.empty((B, K, S, G, hdv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _spec_lib()
+    _spec_geometry("flash_decode_spec_paged", lib, S, G, hd, hdv, T, k_pool)
+    device, stream = _stream_args(q)
+    rc = lib.flash_decode_spec_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, K, S, G, NB, bs, T, hd, hdv,
+        float(scale), int(q.dtype == torch.bfloat16), int(lowp), device,
+        stream)
+    check_launch(lib, rc, "flash_decode_spec_paged")
+    launches["flash_decode_spec_paged"] += 1
     return out

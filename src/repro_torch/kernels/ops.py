@@ -7,7 +7,10 @@ the CPU).
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention import flash_attention_mha, flash_decode
+from repro_torch.kernels.flash_attention import (flash_attention_mha, flash_decode,
+                                                 flash_decode_paged,
+                                                 flash_decode_spec,
+                                                 flash_decode_spec_paged)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
@@ -45,3 +48,53 @@ def decode_attention(q, k, v, lengths):
     qg = q.reshape(B, K, H // K, hd)  # (B,1,H,hd) -> grouped, same head order
     out = flash_decode(qg, k, v, lengths)
     return out.reshape(B, 1, H, v.shape[-1])
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_table, lengths):
+    """Single-token GQA decode against a paged (block-pooled) KV cache.
+
+    q: (B, 1, H, hd); k_pool/v_pool: (num_blocks, block_size, K, hd[v])
+    shared physical blocks; block_table: (B, T) int32; lengths: (B,) or
+    scalar valid counts. Same grouped-query streaming as
+    ``decode_attention``, with the kernel translating positions through the
+    block table.
+    """
+    B, _, H, hd = q.shape
+    K = k_pool.shape[2]
+    qg = q.reshape(B, K, H // K, hd)
+    out = flash_decode_paged(qg, k_pool, v_pool, block_table, lengths)
+    return out.reshape(B, 1, H, v_pool.shape[-1])
+
+
+def decode_attention_spec(q, k, v, lengths):
+    """Speculative multi-token GQA verify against a ragged KV cache, fused.
+
+    q: (B, S, H, hd) — the S draft positions' queries (draft KVs already
+    scattered at positions lengths[b]..lengths[b]+S-1). k,v: (B, Smax, K,
+    hd[v]) cache buffers; lengths: (B,) or scalar BASE valid counts (before
+    the drafts). Draft position qi attends cache positions
+    < lengths[b] + qi + 1 — causal inside the verify block. One kernel call
+    verifies all S positions; the cache bytes are streamed once per KV head
+    per group of up to 8 rows.
+    """
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    # (B,S,H,hd) -> (B,K,S,G,hd): group the G heads sharing each KV head,
+    # keeping draft order explicit so the kernel maps row r -> qi = r // G
+    qg = q.reshape(B, S, K, H // K, hd).transpose(1, 2)
+    out = flash_decode_spec(qg, k, v, lengths)
+    return out.transpose(1, 2).reshape(B, S, H, v.shape[-1])
+
+
+def decode_attention_spec_paged(q, k_pool, v_pool, block_table, lengths):
+    """Speculative multi-token GQA verify against a paged KV cache.
+
+    q: (B, S, H, hd); pools/table/lengths as in ``decode_attention_paged``,
+    with ``lengths`` the BASE valid counts and the block table covering the
+    draft positions (boundary blocks appended before the verify call).
+    """
+    B, S, H, hd = q.shape
+    K = k_pool.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd).transpose(1, 2)
+    out = flash_decode_spec_paged(qg, k_pool, v_pool, block_table, lengths)
+    return out.transpose(1, 2).reshape(B, S, H, v_pool.shape[-1])

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.paging.paged_cache import gather_paged_kv
+
 NEG_INF = -1e30  # mask value of the JAX kernels (not -inf)
 
 
@@ -133,3 +135,54 @@ def ref_flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = (_dot_inputs(p, lowp) @ _dot_inputs(v, lowp).transpose(1, 2)) / l
     return out.to(q.dtype)
+
+
+def ref_flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
+                           scale: Optional[float] = None, lowp: bool = False):
+    """Single-query decode over a paged cache: the contiguous view the
+    (clipped) block table describes, then ``ref_flash_decode``.
+
+    q: (B,K,G,hd); pools: (NB,bs,K,hd[v]); block_table: (B,T) int;
+    lengths: (B,) int, clamped to T*bs. Returns (B,K,G,hdv).
+    """
+    return ref_flash_decode(q, gather_paged_kv(k_pool, block_table),
+                            gather_paged_kv(v_pool, block_table), lengths,
+                            scale=scale, lowp=lowp)
+
+
+def ref_flash_decode_spec(q, k, v, lengths, *, scale: Optional[float] = None,
+                          lowp: bool = False):
+    """Speculative verify of S draft positions over a contiguous cache.
+
+    q: (B,K,S,G,hd); k: (B,Smax,K,hd); v: (B,Smax,K,hdv); lengths: (B,) int
+    BASE counts. Draft row qi of sequence b attends positions
+    < min(lengths[b] + qi + 1, Smax), masked with ``NEG_INF`` and with
+    explicit zeros past the mask. Returns (B,K,S,G,hdv) in q's dtype.
+    """
+    B, K, S, G, hd = q.shape
+    Smax = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    base = torch.as_tensor(lengths, device=q.device).to(torch.int64).expand(B)
+    qs = _dot_inputs(q.float() * scale, lowp).reshape(B, K, S * G, hd)
+    s = qs @ _dot_inputs(k, lowp).permute(0, 2, 3, 1)              # (B,K,SG,Smax)
+    limit = base[:, None] + torch.arange(S, device=q.device)[None] + 1  # (B,S)
+    limit = limit[:, :, None].expand(B, S, G).reshape(B, 1, S * G, 1)
+    valid = torch.arange(Smax, device=q.device) < limit            # (B,1,SG,Smax)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = (_dot_inputs(p, lowp) @ _dot_inputs(v, lowp).transpose(1, 2)) / l
+    return out.reshape(B, K, S, G, v.shape[-1]).to(q.dtype)
+
+
+def ref_flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
+                                scale: Optional[float] = None,
+                                lowp: bool = False):
+    """``ref_flash_decode_spec`` over the contiguous view a (clipped) block
+    table describes: q (B,K,S,G,hd), pools (NB,bs,K,hd[v]), table (B,T),
+    BASE lengths (B,). Returns (B,K,S,G,hdv)."""
+    return ref_flash_decode_spec(q, gather_paged_kv(k_pool, block_table),
+                                 gather_paged_kv(v_pool, block_table), lengths,
+                                 scale=scale, lowp=lowp)

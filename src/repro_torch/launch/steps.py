@@ -139,6 +139,63 @@ def build_decode_step(model: Model, *, greedy: bool = True):
     return decode_step
 
 
+def build_paged_decode_step(model: Model, *, greedy: bool = True):
+    """One-token decode step over a paged KV cache.
+
+    Same contract as :func:`build_decode_step` (pools updated in place,
+    ``greedy=False`` skips the argmax) with one extra argument: the (B, T)
+    int32 block table routing each sequence's virtual cache positions to
+    physical pool blocks.
+    """
+    @torch.inference_mode()
+    def decode_step(params, cache, tokens, cache_len, block_table):
+        logits, cache = model.paged_decode_step(params, cache, tokens,
+                                                cache_len, block_table)
+        next_tok = logits[:, -1, :].argmax(-1).to(torch.int32)[:, None] \
+            if greedy else None
+        return next_tok, logits, cache
+
+    return decode_step
+
+
+def build_paged_prefill_step(model: Model, *, write: bool = True):
+    """One block-sized chunk of paged prefill, writing prompt KV straight
+    into the pool blocks the chunk's block-table column names:
+    f(params, cache, tokens, start, block_table, last_pos) -> (logits,
+    cache). ``write=True`` ingests in place; ``write=False`` is the
+    read-only full-prefix-hit recompute and leaves the pools untouched."""
+    @torch.inference_mode()
+    def prefill_chunk(params, cache, tokens, start, block_table, last_pos):
+        return model.paged_prefill_step(params, cache, tokens, start,
+                                        block_table, last_pos, write)
+
+    return prefill_chunk
+
+
+def build_spec_decode_step(model: Model):
+    """Speculative verify step: score a (B, S) draft window in one pass,
+    f(params, cache, tokens, cache_len) -> (logits (B, S, V), cache), the
+    cache updated in place. Row qi of the logits is the target model's
+    next-token distribution after window position qi, which greedy
+    verification consumes (an argmax chain)."""
+    @torch.inference_mode()
+    def spec_step(params, cache, tokens, cache_len):
+        return model.spec_decode_step(params, cache, tokens, cache_len)
+
+    return spec_step
+
+
+def build_paged_spec_decode_step(model: Model):
+    """Speculative verify step over a paged KV cache (block-table routed):
+    f(params, cache, tokens, cache_len, block_table) -> (logits, cache)."""
+    @torch.inference_mode()
+    def spec_step(params, cache, tokens, cache_len, block_table):
+        return model.paged_spec_decode_step(params, cache, tokens, cache_len,
+                                            block_table)
+
+    return spec_step
+
+
 @torch.inference_mode()
 def greedy_decode_tokens(model: Model, params, tokens, *, steps: int,
                          max_len: int, cache_dtype=torch.float32):

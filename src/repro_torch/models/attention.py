@@ -9,8 +9,10 @@ package's impl names:
             their plain versions on the CPU), differentiable through
             their own backward kernels
 
-The MLA, cross-attention and paged/speculative decode paths of the JAX
-package are not ported yet.
+Decode runs over the contiguous (B, Smax, K, hd) cache or a paged
+(num_blocks, block_size, K, hd) pool addressed through a (B, T) block table,
+one token at a time or a speculative window of S at once. The MLA and
+cross-attention paths of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import os
 import torch
 
 from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.paging.paged_cache import gather_paged_kv
 
 NEG_INF = -1e30
 
@@ -44,13 +47,15 @@ def gqa_params(gen: torch.Generator, cfg, dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 
-def naive_attention(q, k, v, *, causal: bool, q_offset: int = 0,
-                    kv_len=None):
+def naive_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
     """Oracle attention. q:(B,Sq,H,hd) k,v:(B,Sk,K,hd).
 
     ``kv_len`` may be a scalar or a per-sequence (B,) tensor (ragged decode
     under continuous batching); rows must keep kv_len >= 1 to stay
     well-defined — a fully-masked row softmaxes to uniform, not zero.
+    ``q_offset`` may likewise be a (B,) tensor: query row qi of sequence b
+    then attends positions <= q_offset[b] + qi (the speculative-verify
+    oracle, where each sequence's draft window starts at its own cache_len).
     """
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -59,8 +64,13 @@ def naive_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
     kv_idx = torch.arange(Sk, device=q.device)
     mask = torch.ones((1, Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        q_idx = torch.arange(Sq, device=q.device) + q_offset
+    if causal and isinstance(q_offset, torch.Tensor) and q_offset.dim() > 0:
+        # per-sequence window starts: (B, Sq) query positions
+        q_idx = torch.arange(Sq, device=q.device)[None] + \
+            q_offset.to(q.device).long()[:, None]
+        mask = mask & (kv_idx[None, None, :] <= q_idx[:, :, None])
+    elif causal:
+        q_idx = torch.arange(Sq, device=q.device) + int(q_offset)
         mask = mask & (kv_idx[None, :] <= q_idx[:, None])[None]
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, device=q.device)
@@ -164,12 +174,33 @@ def init_gqa_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _decode_positions(cache_len, B, device):
-    """(B,1) rope positions from a scalar or per-sequence cache_len."""
-    cl = torch.as_tensor(cache_len, device=device)
-    if cl.dim() == 0:
-        return cl.to(torch.int32).expand(B, 1)
-    return cl.to(torch.int32)[:, None]
+def init_gqa_pool(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
+                  device="cpu"):
+    """Paged layout: KV blocks shared by all sequences, no batch dim."""
+    shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _window_positions(cache_len, B: int, S: int, device) -> torch.Tensor:
+    """(B, S) virtual positions cache_len..cache_len+S-1 (int64)."""
+    cl = torch.as_tensor(cache_len, device=device).long().expand(B)
+    return cl[:, None] + torch.arange(S, device=device)[None]
+
+
+def _qkv_window(p, x, cache_len, cfg):
+    """q (B,S,H,hd) and the window's new k, v (B,S,K,hd), roped at
+    positions cache_len + qi."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k_new = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v_new = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.pos_embedding == "rope":
+        pos = _window_positions(cache_len, B, S, x.device).to(torch.int32)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    return q, k_new, v_new
 
 
 def _scatter_token(buf, new, cache_len) -> None:
@@ -208,13 +239,7 @@ def gqa_decode(p, x, cache, cache_len, cfg, *, impl: str = "naive"):
     """
     B = x.shape[0]
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, 1, cfg.n_heads, hd)
-    k_new = (x @ p["wk"]).reshape(B, 1, cfg.n_kv_heads, hd)
-    v_new = (x @ p["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
-    if cfg.pos_embedding == "rope":
-        pos = _decode_positions(cache_len, B, x.device)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    q, k_new, v_new = _qkv_window(p, x, cache_len, cfg)
     _scatter_token(cache["k"], k_new, cache_len)
     _scatter_token(cache["v"], v_new, cache_len)
     lengths = torch.as_tensor(cache_len, device=x.device) + 1
@@ -225,4 +250,196 @@ def gqa_decode(p, x, cache, cache_len, cfg, *, impl: str = "naive"):
         out = naive_attention(q, cache["k"], cache["v"], causal=False,
                               kv_len=lengths)
     y = out.reshape(B, 1, cfg.n_heads * hd) @ p["wo"]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# paged cache and speculative windows
+# ---------------------------------------------------------------------------
+
+
+def _pool_index(pool, pos, block_table):
+    """(physical block, offset) of virtual positions ``pos`` (B, S), routed
+    through each row's block-table row: the logical block is clipped to
+    [0, T-1] and the physical one to [0, num_blocks-1], as the reference
+    clips them."""
+    bs = pool.shape[1]
+    table = torch.as_tensor(block_table, device=pool.device).long()
+    blk = (pos // bs).clamp(0, table.shape[1] - 1)
+    phys = torch.gather(table, 1, blk).clamp(0, pool.shape[0] - 1)
+    return phys, pos % bs
+
+
+def _scatter_token_paged(pool, new, cache_len, block_table) -> None:
+    """Write ``new`` (B,1,...) into a block pool (num_blocks, block_size, ...)
+    at virtual position ``cache_len`` of each sequence, routed through its
+    block-table row, in place. Idle serving slots' rows point at the null
+    block, so their masked-garbage writes never touch a live sequence's
+    cache."""
+    _scatter_tokens_paged(pool, new, cache_len, block_table)
+
+
+def _scatter_tokens(buf, new, cache_len) -> None:
+    """Write ``new`` (B,S,...) into ``buf`` (B,Smax,...) at seq positions
+    cache_len..cache_len+S-1 (the speculative draft window), in place.
+
+    Scalar ``cache_len`` starts one slice, clamped into [0, Smax-S] as JAX's
+    dynamic_update_slice clamps it. Per-sequence (B,) ``cache_len`` writes
+    each row's positions that fall inside the cache and skips the rest, as
+    the reference's masked gather does: an out-of-range entry rewrites what
+    a position this call leaves alone already holds (cache_len-1, or Smax-1
+    when the whole window is past the cache), so no two entries of the
+    index write different values to one place.
+    """
+    B, S = new.shape[:2]
+    Smax = buf.shape[1]
+    cl = torch.as_tensor(cache_len, device=buf.device)
+    if cl.dim() == 0:
+        start = min(max(int(cl), 0), Smax - S)
+        buf[:, start:start + S] = new.to(buf.dtype)
+        return
+    pos = _window_positions(cl, B, S, buf.device)
+    inside = (pos >= 0) & (pos < Smax)
+    spare = (cl.long() - 1).clamp(0, Smax - 1)[:, None].expand(B, S)
+    pos = torch.where(inside, pos, spare)
+    rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+    keep = (~inside).reshape(inside.shape + (1,) * (buf.ndim - 2))
+    buf[rows, pos] = torch.where(keep, buf[rows, pos], new.to(buf.dtype))
+
+
+def _scatter_tokens_paged(pool, new, cache_len, block_table) -> None:
+    """Write ``new`` (B,S,...) into a block pool at virtual positions
+    cache_len..cache_len+S-1 of each sequence, in place, with one indexed
+    write for the whole window.
+
+    Idle slots' rows point at null block 0, so several entries may name the
+    same null-block position; a CUDA index write with duplicate indices
+    keeps an arbitrary one of their values. That is harmless only because
+    the target is the null block, which no live sequence reads: a live
+    row's window positions land in its own private blocks (the engine
+    copies a shared block on write before the call).
+    """
+    B, S = new.shape[:2]
+    pos = _window_positions(cache_len, B, S, pool.device)
+    phys, off = _pool_index(pool, pos, block_table)
+    pool[phys, off] = new.to(pool.dtype)
+
+
+def _scatter_chunk_paged(pool, new, start: int, block_table) -> None:
+    """Write one block-aligned chunk ``new`` (B, block_size, ...) into a
+    block pool at virtual positions [start, start + block_size), routed
+    through each sequence's block-table row, in place. ``start`` must be a
+    multiple of block_size — the chunk grid *is* the block grid, which is
+    what lets prefix-cache hits skip whole chunks exactly."""
+    pos = torch.full((new.shape[0], 1), int(start), dtype=torch.long,
+                     device=pool.device)
+    phys, _ = _pool_index(pool, pos, block_table)
+    pool[phys[:, 0]] = new.to(pool.dtype)
+
+
+def gqa_prefill_paged(p, x, cache, start: int, block_table, cfg, *,
+                      write: bool = True):
+    """One chunk of paged prefill: ingest block_size prompt positions
+    starting at ``start`` straight into the KV pools (in place), then attend
+    causally over everything written so far (gathered through the block
+    table).
+
+    ``write=False`` is the full-prefix-hit path: every block is already
+    populated (by the donor sequence that prefilled the identical prefix),
+    so the chunk only *reads* the pools to recompute the last position's
+    activations for logits — no pool mutation, shared blocks stay intact.
+
+    Attention is the naive oracle over the gathered pool, as in the
+    reference; no kernel runs here.
+    """
+    B, C, _ = x.shape
+    q, k_new, v_new = _qkv_window(p, x, start, cfg)
+    if write:
+        _scatter_chunk_paged(cache["k"], k_new, start, block_table)
+        _scatter_chunk_paged(cache["v"], v_new, start, block_table)
+    out = naive_attention(q, gather_paged_kv(cache["k"], block_table),
+                          gather_paged_kv(cache["v"], block_table),
+                          causal=True, q_offset=int(start))
+    y = out.reshape(B, C, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return y, cache
+
+
+def gqa_decode_paged(p, x, cache, cache_len, block_table, cfg, *,
+                     impl: str = "naive"):
+    """One-token GQA decode over a paged KV cache.
+
+    cache: {"k","v"} pools of shape (num_blocks, block_size, K, hd) shared by
+    every sequence, updated in place; ``block_table`` (B, T) int32 names
+    each sequence's blocks. Math is identical to :func:`gqa_decode` on the
+    contiguous cache the table describes: scatter the new token's KV at
+    virtual position ``cache_len``, then attend over positions
+    < cache_len + 1. ``naive`` gathers the contiguous view through the table
+    (the oracle); ``pallas`` runs the paged flash-decode kernel.
+    """
+    B = x.shape[0]
+    q, k_new, v_new = _qkv_window(p, x, cache_len, cfg)
+    _scatter_token_paged(cache["k"], k_new, cache_len, block_table)
+    _scatter_token_paged(cache["v"], v_new, cache_len, block_table)
+    lengths = torch.as_tensor(cache_len, device=x.device) + 1
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        out = kops.decode_attention_paged(q, cache["k"], cache["v"],
+                                          block_table, lengths)
+    else:
+        out = naive_attention(q, gather_paged_kv(cache["k"], block_table),
+                              gather_paged_kv(cache["v"], block_table),
+                              causal=False, kv_len=lengths)
+    y = out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return y, cache
+
+
+def gqa_decode_spec(p, x, cache, cache_len, cfg, *, impl: str = "naive"):
+    """Speculative multi-token decode: verify S draft positions in one pass.
+
+    x: (B,S,d) — the last accepted token followed by S-1 draft tokens, so
+    position qi of the window sits at cache slot cache_len + qi. All S
+    tokens' KV are written into the cache in place (rollback is the
+    *caller's* cache_len bookkeeping: rejected tail KVs stay resident but
+    are masked dead by every later call's length arguments), then each
+    position attends causally inside the window on top of its sequence's
+    history: positions < cache_len + qi + 1. Returns (B,S,d) activations.
+    """
+    B, S, _ = x.shape
+    q, k_new, v_new = _qkv_window(p, x, cache_len, cfg)
+    _scatter_tokens(cache["k"], k_new, cache_len)
+    _scatter_tokens(cache["v"], v_new, cache_len)
+    cl = torch.as_tensor(cache_len, device=x.device)
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        out = kops.decode_attention_spec(q, cache["k"], cache["v"], cl)
+    else:
+        out = naive_attention(q, cache["k"], cache["v"], causal=True,
+                              q_offset=cl)
+    y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return y, cache
+
+
+def gqa_decode_spec_paged(p, x, cache, cache_len, block_table, cfg, *,
+                          impl: str = "naive"):
+    """Speculative multi-token decode over a paged KV cache.
+
+    Same verify-window math as :func:`gqa_decode_spec`; the S draft KVs are
+    written through the block table (the engine appends boundary blocks
+    for positions cache_len..cache_len+S-1 before the call), and rollback is
+    again pure cache_len bookkeeping.
+    """
+    B, S, _ = x.shape
+    q, k_new, v_new = _qkv_window(p, x, cache_len, cfg)
+    _scatter_tokens_paged(cache["k"], k_new, cache_len, block_table)
+    _scatter_tokens_paged(cache["v"], v_new, cache_len, block_table)
+    cl = torch.as_tensor(cache_len, device=x.device)
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        out = kops.decode_attention_spec_paged(q, cache["k"], cache["v"],
+                                               block_table, cl)
+    else:
+        out = naive_attention(q, gather_paged_kv(cache["k"], block_table),
+                              gather_paged_kv(cache["v"], block_table),
+                              causal=True, q_offset=cl)
+    y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
     return y, cache

@@ -26,6 +26,16 @@ class Model:
     prefill: Callable  # (params, batch) -> (logits, cache)
     init_cache: Callable  # (batch, max_len, dtype) -> cache
     decode_step: Callable  # (params, cache, tokens, cache_len) -> (logits, cache)
+    # (num_blocks, block_size, dtype) -> paged pools
+    init_paged_cache: Callable
+    # (params, cache, tokens, cache_len, block_table) -> (logits, cache)
+    paged_decode_step: Callable
+    # (params, cache, tokens, start, block_table, last_pos, write) -> (logits, cache)
+    paged_prefill_step: Callable
+    # (params, cache, tokens (B,S), cache_len) -> (logits (B,S,V), cache)
+    spec_decode_step: Callable
+    # (params, cache, tokens (B,S), cache_len, block_table) -> (logits, cache)
+    paged_spec_decode_step: Callable
     # the exact build_model kwargs this model was constructed with, so a
     # single-knob rebuild preserves the rest
     build_kwargs: dict = dataclasses.field(default_factory=dict)
@@ -71,5 +81,23 @@ def build_model(cfg: ModelConfig, *, impl: str = "chunked", chunk: int = 1024,
         decode_step=lambda p, cache, tokens, cache_len:
             transformer.decode_step_decoder(p, cfg, cache, tokens, cache_len,
                                             impl=impl),
+        init_paged_cache=lambda num_blocks, block_size, dtype=torch.bfloat16:
+            transformer.init_paged_cache_decoder(cfg, num_blocks, block_size,
+                                                 dtype, dev),
+        paged_decode_step=lambda p, cache, tokens, cache_len, block_table:
+            transformer.decode_step_decoder(p, cfg, cache, tokens, cache_len,
+                                            impl=impl,
+                                            block_table=block_table),
+        paged_prefill_step=lambda p, cache, tokens, start, block_table,
+        last_pos=None, write=True: transformer.paged_prefill_step_decoder(
+            p, cfg, cache, tokens, start, block_table, last_pos=last_pos,
+            write=write),
+        spec_decode_step=lambda p, cache, tokens, cache_len:
+            transformer.spec_decode_step_decoder(p, cfg, cache, tokens,
+                                                 cache_len, impl=impl),
+        paged_spec_decode_step=lambda p, cache, tokens, cache_len, block_table:
+            transformer.spec_decode_step_decoder(p, cfg, cache, tokens,
+                                                 cache_len, impl=impl,
+                                                 block_table=block_table),
         build_kwargs=kw,
     )

@@ -8,15 +8,19 @@ gradients once, where indexing layer ``i`` as ``v[i]`` would write a
 zero-filled gradient the size of the whole stacked leaf for every layer
 (~4 GB of writes per layer at llama3.2-1b's full width). The KV cache keeps
 the JAX layout too: ``{"k", "v"}`` of shape (L, B, Smax, K, hd), so the
-tests compare caches directly. The MoE, VLM, SSM and hybrid families are
-not ported yet.
+tests compare caches directly; the paged layout keeps its
+(L, num_blocks, block_size, K, hd) pools. The MoE, VLM, SSM and hybrid
+families are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import (gqa_decode, gqa_forward, gqa_params,
-                                          init_gqa_cache)
+from repro_torch.models.attention import (gqa_decode, gqa_decode_paged,
+                                          gqa_decode_spec,
+                                          gqa_decode_spec_paged, gqa_forward,
+                                          gqa_params, gqa_prefill_paged,
+                                          init_gqa_cache, init_gqa_pool)
 from repro_torch.models.common import (apply_mlp, apply_norm, cross_entropy,
                                        dense_init, embed_tokens, mlp_params,
                                        norm_params)
@@ -182,7 +186,53 @@ def init_cache_decoder(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             for k, v in layer.items()}
 
 
-def decode_step_decoder(params, cfg, cache, tokens, cache_len, *, impl="chunked"):
+def init_paged_cache_decoder(cfg, num_blocks: int, block_size: int,
+                             dtype=torch.bfloat16, device="cpu"):
+    """Paged KV layout: per-layer (num_blocks, block_size, K, hd) pools with
+    a leading layer axis. One block-table row addresses the same physical
+    block index in every layer's pool, so the table is shared across the
+    stack."""
+    _check_family(cfg)
+    layer = init_gqa_pool(cfg, num_blocks, block_size, dtype, device)
+    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+            for k, v in layer.items()}
+
+
+def _layer_cache(cache, i: int) -> dict:
+    """Layer ``i``'s cache entries as views, so the layer writes in place."""
+    return {"k": cache["k"][i], "v": cache["v"][i]}
+
+
+def paged_prefill_step_decoder(params, cfg, cache, tokens, start: int,
+                               block_table, *, last_pos=None,
+                               write: bool = True):
+    """One block-sized chunk of paged prefill.
+
+    tokens: (B, block_size) int — one chunk of the (right-padded) prompt;
+    ``start`` is its first virtual position, always a block multiple so the
+    chunk occupies exactly one block-table column. KV is written straight
+    into the (L, num_blocks, block_size, ...) pools, in place — there is no
+    contiguous (1, P, ...) prefill cache to splice afterwards.
+    ``write=False`` recomputes activations against already-populated
+    (prefix-hit) blocks without touching the pools.
+
+    Returns (logits, cache): logits of position ``last_pos`` within the
+    chunk (``None`` = final position), as :func:`_last_logits`.
+    """
+    _check_family(cfg)
+    h = embed_tokens(params["embed"], tokens)
+    for i, lp in enumerate(_layer_views(params["layers"], cfg.n_layers)):
+        x = apply_norm(lp["ln1"], h, cfg.norm)
+        a, _ = gqa_prefill_paged(lp["attn"], x, _layer_cache(cache, i), start,
+                                 block_table, cfg, write=write)
+        h = h + a
+        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm),
+                          cfg.activation)
+    return _last_logits(params, cfg, h, last_pos), cache
+
+
+def decode_step_decoder(params, cfg, cache, tokens, cache_len, *, impl="chunked",
+                        block_table=None):
     """One-token decode. tokens: (B,1) int; cache_len: scalar or (B,) int.
 
     ``impl="pallas"`` selects the flash-decode kernel for every KV-cache
@@ -190,14 +240,54 @@ def decode_step_decoder(params, cfg, cache, tokens, cache_len, *, impl="chunked"
     prefill impls chunked/pallas apply to full-sequence attention, so decode
     maps them onto {naive, pallas}). The cache is updated in place (the JAX
     package donates it instead) and returned.
+
+    ``block_table`` (B, T) int switches to the paged layout: ``cache`` leaves
+    are (L, num_blocks, block_size, ...) pools and every layer resolves the
+    same table row to its own pool.
     """
     _check_family(cfg)
     dimpl = "pallas" if impl == "pallas" else "naive"
     h = embed_tokens(params["embed"], tokens)
     for i, lp in enumerate(_layer_views(params["layers"], cfg.n_layers)):
-        lcache = {"k": cache["k"][i], "v": cache["v"][i]}  # views: written in place
+        lcache = _layer_cache(cache, i)
         x = apply_norm(lp["ln1"], h, cfg.norm)
-        a, _ = gqa_decode(lp["attn"], x, lcache, cache_len, cfg, impl=dimpl)
+        if block_table is not None:
+            a, _ = gqa_decode_paged(lp["attn"], x, lcache, cache_len,
+                                    block_table, cfg, impl=dimpl)
+        else:
+            a, _ = gqa_decode(lp["attn"], x, lcache, cache_len, cfg, impl=dimpl)
+        h = h + a
+        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm),
+                          cfg.activation)
+    return _logits(params, cfg, h), cache
+
+
+def spec_decode_step_decoder(params, cfg, cache, tokens, cache_len, *,
+                             impl="chunked", block_table=None):
+    """Speculative verify step.
+
+    tokens: (B, S) int — the last accepted token followed by S-1 draft
+    tokens; window position qi occupies cache slot cache_len + qi. One pass
+    scores every draft: the returned logits are (B, S, V), where row qi is
+    the target model's next-token distribution *given* the window prefix
+    through position qi — row 0 scores the first draft token, row S-1 is
+    the bonus distribution past the last draft. The KV cache comes back
+    with all S positions written (in place); the caller's accept/rollback is
+    pure cache_len bookkeeping. ``block_table`` selects the paged layout as
+    in :func:`decode_step_decoder`.
+    """
+    _check_family(cfg)
+    dimpl = "pallas" if impl == "pallas" else "naive"
+    h = embed_tokens(params["embed"], tokens)
+    for i, lp in enumerate(_layer_views(params["layers"], cfg.n_layers)):
+        lcache = _layer_cache(cache, i)
+        x = apply_norm(lp["ln1"], h, cfg.norm)
+        if block_table is not None:
+            a, _ = gqa_decode_spec_paged(lp["attn"], x, lcache, cache_len,
+                                         block_table, cfg, impl=dimpl)
+        else:
+            a, _ = gqa_decode_spec(lp["attn"], x, lcache, cache_len, cfg,
+                                   impl=dimpl)
         h = h + a
         h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm),
                           cfg.activation)

@@ -79,6 +79,131 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                         torch.zeros(1, 4, 1, 256, device=dev), 2)
 
 
+def _pool_and_table(g, dev, dtype, B, K, hd, hdv, bs, T):
+    """Pools of NB = B*T + 3 blocks and a shuffled (B, T) table with entries
+    outside [0, NB-1], which wrapper and kernel clamp."""
+    NB = B * T + 3
+    kp = torch.randn(NB, bs, K, hd, generator=g, device=dev).to(dtype)
+    vp = torch.randn(NB, bs, K, hdv, generator=g, device=dev).to(dtype)
+    table = torch.randperm(B * T, generator=g, device=dev).reshape(B, T) + 1
+    table[0, -1], table[-1, 0] = -5, NB + 7
+    return kp, vp, table.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", CASES)
+@pytest.mark.parametrize("K,G,hd,hdv,bs,scale", [(2, 4, 64, 64, 16, None),
+                                                 (1, 1, 32, 16, 8, 0.3),
+                                                 (2, 12, 16, 128, 5, None)])
+def test_flash_decode_paged_matches_plain(dtype, lowp, K, G, hd, hdv, bs, scale):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(G + bs)
+    B, T = 5, 9
+    q = torch.randn(B, K, G, hd, generator=g, device=dev).to(dtype)
+    kp, vp, table = _pool_and_table(g, dev, dtype, B, K, hd, hdv, bs, T)
+    lens = torch.tensor([0, 1, 2 * bs + 3, T * bs, T * bs + 9], dtype=torch.int32,
+                        device=dev)
+    before = fa.launches["flash_decode_paged"]
+    out = fa.flash_decode_paged(q, kp, vp, table, lens, scale=scale, lowp=lowp)
+    want = ref.ref_flash_decode_paged(q, kp, vp, table, lens, scale=scale, lowp=lowp)
+    torch.testing.assert_close(out.float(), want.float(), **(BF16 if lowp else F32))
+    assert not out[0].any(), "a length-0 row must return zeros"
+    assert fa.launches["flash_decode_paged"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", CASES)
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("K,S,G,hd,hdv", [(2, 2, 4, 64, 64), (2, 5, 4, 64, 64),
+                                          (1, 3, 1, 32, 16),
+                                          (2, 16, 4, 64, 64),   # S*G = 64, the ceiling
+                                          (1, 4, 3, 16, 128)])
+def test_flash_decode_spec_matches_plain(dtype, lowp, paged, K, S, G, hd, hdv):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(S * G + hd)
+    B, bs, T = 5, 16, 6
+    cap = bs * T
+    q = torch.randn(B, K, S, G, hd, generator=g, device=dev).to(dtype)
+    # base 0, ragged, a window past the capacity, and an idle slot at it
+    lens = torch.tensor([0, 7, 40, cap - 2, cap], dtype=torch.int32, device=dev)
+    tol = BF16 if lowp else F32
+    if paged:
+        kp, vp, table = _pool_and_table(g, dev, dtype, B, K, hd, hdv, bs, T)
+        before = fa.launches["flash_decode_spec_paged"]
+        out = fa.flash_decode_spec_paged(q, kp, vp, table, lens, lowp=lowp)
+        want = ref.ref_flash_decode_spec_paged(q, kp, vp, table, lens, lowp=lowp)
+        assert fa.launches["flash_decode_spec_paged"] == before + 1
+    else:
+        k = torch.randn(B, cap, K, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, cap, K, hdv, generator=g, device=dev).to(dtype)
+        before = fa.launches["flash_decode_spec"]
+        out = fa.flash_decode_spec(q, k, v, lens, lowp=lowp)
+        want = ref.ref_flash_decode_spec(q, k, v, lens, lowp=lowp)
+        assert fa.launches["flash_decode_spec"] == before + 1
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_decode_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _device()
+    table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    pool = torch.zeros(3, 4, 1, 16, device=dev)
+    with pytest.raises(ValueError, match="at most 64 rows"):
+        fa.flash_decode_spec(torch.zeros(1, 1, 13, 5, 16, device=dev),
+                             torch.zeros(1, 8, 1, 16, device=dev),
+                             torch.zeros(1, 8, 1, 16, device=dev), 2)
+    with pytest.raises(ValueError, match="at most 64 rows"):
+        fa.flash_decode_spec_paged(torch.zeros(1, 1, 13, 5, 16, device=dev),
+                                   pool, pool, table, 2)
+    with pytest.raises(ValueError, match="hdv <= 128"):
+        fa.flash_decode_paged(torch.zeros(1, 1, 2, 16, device=dev), pool,
+                              torch.zeros(3, 4, 1, 256, device=dev), table, 2)
+    misaligned = torch.zeros(3 * 4 * 16 + 1, device=dev)[1:].view(3, 4, 1, 16)
+    for call in (lambda: fa.flash_decode_paged(torch.zeros(1, 1, 2, 16, device=dev),
+                                               misaligned, pool, table, 2),
+                 lambda: fa.flash_decode_spec_paged(
+                     torch.zeros(1, 1, 2, 2, 16, device=dev), misaligned, pool,
+                     table, 2)):
+        with pytest.raises(ValueError, match="aligned to 4 elements"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,depth", [("paged", 0), ("contig", 3), ("paged", 3)])
+def test_serve_paged_and_speculative_on_the_card(layout, depth):
+    """The reduced llama3.2-1b served paged and/or speculative through the
+    kernels: the same streams as the plain attention on the card, and the
+    path's kernel launched."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    dev = _device()
+    cfg = get_config("llama3.2-1b").reduced()
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, 12)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+               for n in (3, 9, 3, 5)]
+    prompts[2] = prompts[0]  # identical: a full-prompt hit and a COW copy
+    kernel = {("paged", 0): "flash_decode_paged", ("contig", 3): "flash_decode_spec",
+              ("paged", 3): "flash_decode_spec_paged"}[(layout, depth)]
+    streams = {}
+    for impl in ("pallas", "naive"):
+        model = build_model(cfg, impl=impl, device=dev)
+        params = model.init(model.generator(0))
+        engine = serve.ContinuousBatchingEngine(
+            model, params, max_batch=3, max_seq=48, kv_layout=layout,
+            block_size=4, draft_depth=depth)
+        before = fa.launches[kernel]
+        done = engine.run([serve.Request(uid=u, prompt=p.astype(np.int32),
+                                         max_new_tokens=10)
+                           for u, p in enumerate(prompts)])
+        streams[impl] = {u: f.tokens for u, f in done.items()}
+        launched = fa.launches[kernel] - before
+        assert (launched > 0) == (impl == "pallas"), (impl, launched)
+    assert streams["pallas"] == streams["naive"]
+
+
 BWD_CASES = [  # Sq, Sk, hd, causal, q_offset
     (64, 64, 64, True, 0),
     (67, 67, 64, True, 0),       # ragged tails of rows and keys

@@ -142,7 +142,9 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
     o, lse = tfa.flash_attention_fwd_lse(*map(torch.from_numpy, (q, k, v)))
     ro, rl = ref.ref_flash_attention_fwd(*map(torch.from_numpy, (q, k, v)))
     assert torch.equal(o, ro) and torch.equal(lse, rl)
-    assert tfa.launches == {"flash_fwd": 0, "flash_decode": 0}
+    assert tfa.launches == {"flash_fwd": 0, "flash_decode": 0,
+                            "flash_decode_paged": 0, "flash_decode_spec": 0,
+                            "flash_decode_spec_paged": 0}
 
 
 def test_device_policy():

@@ -118,7 +118,10 @@ def test_engine_contract(params):
     st = engine.stats()
     assert st["kv_bytes"] == 2 * CFG.n_layers * 2 * 8 * CFG.n_kv_heads * \
         CFG.head_dim * 4
-    assert set(st["kernel_launches"]) == {"flash_fwd", "flash_decode"}
+    assert set(st["kernel_launches"]) == {"flash_fwd", "flash_decode",
+                                          "flash_decode_paged",
+                                          "flash_decode_spec",
+                                          "flash_decode_spec_paged"}
 
 
 def test_cli_runs_on_the_cpu(tmp_path):
@@ -129,5 +132,6 @@ def test_cli_runs_on_the_cpu(tmp_path):
     assert sorted(done) == [0, 1, 2]
     payload = json.loads(out.read_text())
     assert payload["device"] == "cpu" and payload["impl"] == "pallas"
-    assert payload["stats"]["kernel_launches"] == {"flash_fwd": 0,
-                                                   "flash_decode": 0}
+    assert payload["stats"]["kernel_launches"] == {
+        "flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0,
+        "flash_decode_spec": 0, "flash_decode_spec_paged": 0}
