@@ -10,8 +10,8 @@ Phases (any failure raises and the script exits non-zero):
 1. Device: exits non-zero, printing no result, unless
    ``torch.cuda.is_available()``. TF32 is switched off for matmuls and
    cuDNN, so every f32 product on the card runs in full f32.
-2. Build: compiles ``src/repro_torch/csrc/*.cu`` for sm_90a with nvcc (one
-   process per source, started together) into ``build/kernels/``.
+2. Build: compiles the seven ``src/repro_torch/csrc/*.cu`` for sm_90a with
+   nvcc (one process per source, started together) into ``build/kernels/``.
 3. Kernels: calls each kernel's wrapper on the card at the shapes of the
    serve and train paths and holds it against its plain PyTorch version
    (``kernels/ref.py``) on the same inputs: 2e-5 in f32, 5e-2 with bf16 dot
@@ -67,17 +67,46 @@ Phases (any failure raises and the script exits non-zero):
    per verify pass, the acceptance rate and tok/s; the weights are random,
    so no rate is required.
 
+12. CNN forward: the paper's ResNet34, MobileNetV2 and ShuffleNetV2 at
+   full width (``configs/cnn_paper.py``), f32 params from a seeded
+   generator, batch 128 of ``synthetic_cnn_batch``, with
+   ``impl="pallas"`` (the depthwise kernel on every stride-1 depthwise
+   layer) and ``"naive"``: logits within 1e-4 of the largest, top-1
+   identical but where the plain top-2 margin is below LOGIT_TOL, and 0,
+   13 and 13 depthwise launches per forward. Prints forward ms.
+13. CNN training: each model through ``TrainSession`` on one static rung
+   (``attn_impl="naive"``: the depthwise kernel has no gradient, as in the
+   reference), adam lr 1e-3, 8 steps on one fixed batch of 128 (the first of
+   the seeded stream): losses finite and the last below the first; step ms,
+   images/s and a profiled step. With
+   ``attn_impl="pallas"`` MobileNetV2 and ShuffleNetV2 must raise at the
+   first backward.
+14. CNN adaptive: MobileNetV2 on ``default_rung_ladder(include_bf16=False)``
+   (the reference's conv refuses the bf16 rung's mixed dtypes) under
+   ``2:6:3.0``, 10 steps, wall-clock latencies: at least one migration, all
+   in place.
+15. RMSNorm: ``ops.rmsnorm`` forward and forward+backward at
+   ``benchmarks/kernel_bench.py``'s shapes, 4096 x 2048 and 512 x 512, as
+   its ``bench_rmsnorm`` drives the reference; the launch counts of both
+   kernels over the run.
+
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 also holds the three paged and speculative kernels against
 their plain versions (B8 K8 G4 hd64, 64 blocks of 16, a shuffled table with
 out-of-range entries, ragged lengths including 0 and past the capacity,
 speculative windows of S = 2 and 5); their library yardsticks are one SDPA
 call with a boolean mask (speculative, contiguous) and a gather followed by
-SDPA (the paged two, two calls).
+SDPA (the paged two, two calls). It holds the depthwise kernel at
+MobileNetV2's largest stride-1 layer, (128, 32, 32, 192) 3x3, in f32 and
+bf16, at ShuffleNetV2's widths 58, 116 and 232 and at a 5x5 case, against
+one ``F.conv2d(groups=C)`` as the library yardstick, and checks that a
+backward through it raises; and the RMSNorm forward and backward kernels at
+4096 x 2048 (f32, bf16), 512 x 512 and 4096 x 96 against ``F.rms_norm``
+and its autograd backward.
 
 Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
-...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}`` and
-``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
+...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
+``{"rmsnorm": ...}`` and ``{"kernels": [...]}`` (all ten kernels), the card's name and power limit as ``nvidia-smi``
 gives them, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -487,6 +516,112 @@ def check_flash_decode_spec(fa, ref, gather, paged: bool):
     return checks
 
 
+DW_MAIN = (128, 32, 32, 192)  # MobileNetV2's largest stride-1 depthwise input, batch 128
+
+
+def depthwise_taps(H, W, kh, kw) -> int:
+    """Output positions times taps that fall inside the image (SAME): the
+    multiply-adds this input needs per (batch, channel)."""
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    return sum((H - abs(a - ph)) * (W - abs(c - pw)) for a in range(kh) for c in range(kw))
+
+
+def check_depthwise(dw, ref):
+    """Depthwise conv at MobileNetV2's largest stride-1 layer, (128, 32, 32,
+    192) 3x3, in f32 and bf16, then ShuffleNetV2's basic-unit widths 58, 116
+    and 232 at their spatial sizes, and a 5x5 case. The library yardstick is
+    one ``F.conv2d(groups=C)`` on the channels-last view (cuDNN, TF32 off);
+    the port never calls it. A backward through the op must raise."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(6)
+    checks = []
+    for shape, k, dtype in [(DW_MAIN, 3, torch.float32), (DW_MAIN, 3, torch.bfloat16),
+                            ((128, 16, 16, 58), 3, torch.float32),
+                            ((128, 8, 8, 116), 3, torch.float32),
+                            ((128, 4, 4, 232), 3, torch.float32),
+                            ((128, 32, 32, 96), 5, torch.float32)]:
+        B, H, W, C = shape
+        x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
+        w = torch.randn(k, k, C, generator=g, device="cuda").to(dtype)
+        out = dw.depthwise_conv(x, w)
+        want = ref.ref_depthwise_conv(x, w)
+        torch.cuda.synchronize()
+        xc = x.permute(0, 3, 1, 2)                 # NCHW view of NHWC memory
+        wc = w.permute(2, 0, 1)[:, None].contiguous()  # (C, 1, kh, kw)
+        elt = x.element_size()
+        lowp = dtype == torch.bfloat16
+        checks.append(kernel_check(
+            f"depthwise_conv {list(shape)} {k}x{k}", out, want,
+            BF16_TOL if lowp else F32_TOL, shape=list(shape), k=k,
+            dtype=str(dtype).replace("torch.", ""),
+            ms=time_ms(lambda: dw.depthwise_conv(x, w)),
+            plain_ms=time_ms(lambda: ref.ref_depthwise_conv(x, w)),
+            library_ms=time_ms(lambda: F.conv2d(xc, wc, padding=k // 2, groups=C)),
+            library_calls="F.conv2d(groups=C), channels-last, one call",
+            nbytes=(2 * B * H * W * C + k * k * C) * elt,
+            flops=2 * B * C * depthwise_taps(H, W, k, k), lowp=lowp))
+    x = torch.randn(1, 8, 8, 16, device="cuda", requires_grad=True)
+    y = dw.depthwise_conv(x, torch.randn(3, 3, 16, device="cuda"))
+    try:
+        y.sum().backward()
+        raised = False
+    except NotImplementedError as e:
+        raised = True
+        print(f"[kernels] depthwise_conv backward raises as in the reference: {e}")
+    check(raised, "a backward through depthwise_conv did not raise")
+    return checks
+
+
+def check_rmsnorm(rn, ref):
+    """RMSNorm forward and backward at kernel_bench's full shape, 4096 x 2048,
+    in f32 and bf16, then 512 x 512 and a d of 96. Library yardsticks:
+    ``F.rms_norm`` and one ``torch.autograd.grad`` through it (dx and dscale;
+    its forward runs before the timing)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(7)
+    fwd, bwd = [], []
+    for rows, d, dtype in [(4096, 2048, torch.float32), (4096, 2048, torch.bfloat16),
+                           (512, 512, torch.float32), (4096, 96, torch.float32)]:
+        x, cot = (torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+                  for _ in range(2))
+        s = torch.randn(d, generator=g, device="cuda").to(dtype)
+        y = rn.rmsnorm_fwd(x, s)
+        dx, ds = rn.rmsnorm_bwd(x, s, cot)
+        want_dx, want_ds = ref.ref_rmsnorm_bwd(x, s, cot)
+        want_y = ref.ref_rmsnorm(x, s)
+        torch.cuda.synchronize()
+        lowp = dtype == torch.bfloat16
+        tol = BF16_TOL if lowp else F32_TOL
+        elt = x.element_size()
+        n = rows * d
+        common = dict(shape=[rows, d], dtype=str(dtype).replace("torch.", ""), lowp=lowp)
+        fwd.append(kernel_check(
+            f"rmsnorm_fwd [{rows}, {d}]", y, want_y, tol, **common,
+            ms=time_ms(lambda: rn.rmsnorm_fwd(x, s)),
+            plain_ms=time_ms(lambda: ref.ref_rmsnorm(x, s)),
+            library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-5)),
+            library_calls="F.rms_norm, one call",
+            nbytes=2 * n * elt + d * elt, flops=4 * n))
+        xs, ss = x.detach().clone().requires_grad_(), s.detach().clone().requires_grad_()
+        out = F.rms_norm(xs, (d,), weight=ss, eps=1e-5)
+        library_ms = time_ms(lambda: torch.autograd.grad(out, (xs, ss), cot,
+                                                         retain_graph=True))
+        del out, xs, ss
+        # dx and dscale against the plain version (dscale sums 4096 rows in
+        # another order: compared relative to its largest element)
+        scale_ds = float(want_ds.float().abs().max())
+        got = torch.cat([dx.float().flatten(), ds.float().flatten() / scale_ds])
+        want = torch.cat([want_dx.float().flatten(), want_ds.float().flatten() / scale_ds])
+        bwd.append(kernel_check(
+            f"rmsnorm_bwd [{rows}, {d}]", got, want, tol, **common,
+            ms=time_ms(lambda: rn.rmsnorm_bwd(x, s, cot)),
+            plain_ms=time_ms(lambda: ref.ref_rmsnorm_bwd(x, s, cot)),
+            library_ms=library_ms,
+            library_calls="autograd.grad through F.rms_norm (dx, dscale), one call",
+            nbytes=3 * n * elt + 2 * d * elt, flops=10 * n))
+    return fwd, bwd
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: serve llama3.2-1b at full width
 # ---------------------------------------------------------------------------
@@ -781,7 +916,7 @@ def grad_agreement(build_model, cfg, batch, tree_leaves, device="cuda"):
 def run_session(TrainSession, rungs, cfg, batch_fn, steps, *, start=0,
                 state=None, device="cuda", **kw):
     sess = TrainSession(cfg, rungs, optimizer=kw.pop("optimizer"),
-                        lr=TRAIN["lr"], batch_fn=batch_fn, verbose=True,
+                        lr=kw.pop("lr", TRAIN["lr"]), batch_fn=batch_fn, verbose=True,
                         device=device, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -963,6 +1098,194 @@ def train_phases(fa, build_model, cfg, device="cuda"):
         "adaptive": adaptive_out}, train_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the paper's CNNs; phase 15: the RMSNorm path
+# ---------------------------------------------------------------------------
+
+
+CNN = dict(batch=128, steps=8, lr=1e-3, seed=0, adaptive_steps=10, trace="2:6:3.0")
+CNN_ARCHS = {"resnet34": 0, "mobilenet-v2": 13, "shufflenet-v2": 13}  # depthwise launches per forward
+CNN_LOGIT_RTOL = 1e-4  # pallas vs naive logits, relative to the largest
+
+
+def cuda_ms(fn, iters: int = 5) -> float:
+    """Host wall time per call of ``fn`` over ``iters`` calls, each ended by
+    a device synchronise (a whole forward: launches and device work)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def cnn_phases(dw, build_model, get_config, device="cuda"):
+    """Phases 12-14. Returns (the cnn JSON object, each forward path's
+    depthwise launch counts). ``device`` is for rehearsing the control flow
+    on the CPU."""
+    from repro_torch.engine.events import InterferenceTrace
+    from repro_torch.engine.rungs import Rung, default_rung_ladder
+    from repro_torch.engine.session import TrainSession
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.optimizers import adam
+    from repro_torch.tree import tree_leaves
+
+    B = CNN["batch"]
+    out, launches = {}, {}
+    # -- phase 12: forward at full width, the kernel against the plain path ----
+    for arch, want_launches in CNN_ARCHS.items():
+        cfg = get_config(arch)
+        batch_fn = make_batch_fn(cfg, B, 0, seed=CNN["seed"])
+        images = torch.as_tensor(batch_fn(0)["images"], device=device)
+        model = build_model(cfg, impl="pallas", device=device)
+        naive = build_model(cfg, impl="naive", device=device)
+        params = model.init(model.generator(CNN["seed"]))
+        with torch.no_grad():
+            dw.launches["depthwise_conv"] = 0
+            logits = model.forward(params, {"images": images})
+            n = dw.launches["depthwise_conv"]
+            want = naive.forward(params, {"images": images})
+            torch.cuda.synchronize()
+            check(logits.shape == (B, cfg.n_classes) and bool(torch.isfinite(logits).all()),
+                  f"{arch}: logits not finite of shape (B, n_classes)")
+            rel = float((logits - want).abs().max() / want.abs().max())
+            top2 = want.float().topk(2, dim=-1)
+            margin = top2.values[:, 0] - top2.values[:, 1]
+            differ = logits.argmax(-1) != top2.indices[:, 0]
+            check(rel <= CNN_LOGIT_RTOL, f"{arch}: pallas vs naive logits differ by {rel}")
+            check(bool((margin[differ] < LOGIT_TOL).all()),
+                  f"{arch}: top-1 differs where the plain margin is >= {LOGIT_TOL}")
+            check(n == want_launches, f"{arch}: {n} depthwise launches per forward, "
+                  f"not {want_launches}")
+            fwd_ms = {impl: cuda_ms(lambda m=m: m.forward(params, {"images": images}))
+                      for impl, m in (("pallas", model), ("naive", naive))}
+        launches[f"cnn_forward_{arch}"] = n
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        print(f"[cnn] {arch}: {n_params / 1e6:.3f}M params, batch {B} x "
+              f"{cfg.image_size}x{cfg.image_size}x{cfg.in_channels}: pallas vs naive "
+              f"logits max |d| / max |logit| = {rel:.3g} (limit {CNN_LOGIT_RTOL}), "
+              f"{int(differ.sum())} top-1 differences; {n} depthwise launches per "
+              f"forward; forward {fwd_ms['pallas']:.2f} ms pallas, "
+              f"{fwd_ms['naive']:.2f} ms naive", flush=True)
+        out[arch] = {"params": n_params, "logit_rel_diff": rel,
+                     "top1_differences": int(differ.sum()),
+                     "depthwise_launches_per_forward": n,
+                     "forward_ms": fwd_ms}
+        del model, naive, params, logits, want
+        free_cuda()
+
+    # -- phase 13: train each model through TrainSession (plain path) --------
+    # on one fixed batch: only label mod 7 can be learnt from
+    # synthetic_cnn_batch, and on a stream of fresh batches adam at lr 1e-3
+    # first raises the 600-class models' loss (every head weight moves by lr,
+    # towards the labels just seen), so a fixed batch is what shows learning
+    # in 8 steps
+    for arch in CNN_ARCHS:
+        cfg = get_config(arch)
+        first = make_batch_fn(cfg, B, 0, seed=CNN["seed"])(0)
+        batch_fn = lambda step, first=first: first  # noqa: E731
+        rung = Rung(name="static", attn_impl="naive")
+        torch.cuda.reset_peak_memory_stats()
+        res, wall = run_session(TrainSession, [rung], cfg, batch_fn, CNN["steps"],
+                                optimizer=adam(), adaptive=False, lr=CNN["lr"],
+                                device=device)
+        ms = step_ms(res)
+        med = statistics.median(ms[1:])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(all(x == x and abs(x) < 1e9 for x in res.losses),
+              f"{arch}: losses not finite: {res.losses}")
+        check(res.losses[-1] < res.losses[0],
+              f"{arch}: the last loss is not below the first: {res.losses}")
+        host_ms, dev_ms, top = profile_train_step(
+            rung.cached_step(cfg, adam(), lr=CNN["lr"], device=device), res.state, first)
+        top = top[:8]
+        print(f"[cnn-train] {arch}: losses {[round(x, 4) for x in res.losses]}; step ms "
+              f"{[round(x, 1) for x in ms]}; median (steps 2-{CNN['steps']}) {med:.1f} "
+              f"ms = {B / (med / 1e3):.0f} images/s; peak memory {peak_gb:.2f} GB; "
+              f"profiled step: host {host_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+              f"({100 * (1 - dev_ms / host_ms):.1f}% idle)", flush=True)
+        for t, k, name in top[:6]:
+            print(f"[profile]   {t:8.3f} ms {k:5d} calls  {name[:90]}")
+        out[arch]["train"] = {"losses": res.losses, "step_ms": ms, "median_step_ms": med,
+                              "images_per_s": B / (med / 1e3), "peak_memory_gb": peak_gb,
+                              "profile": {"host_ms": host_ms, "device_ms": dev_ms,
+                                          "top": [[t, k, n[:120]] for t, k, n in top]}}
+        del res
+        free_cuda()
+    for arch in ("mobilenet-v2", "shufflenet-v2"):  # the kernel has no gradient
+        cfg = get_config(arch)
+        try:
+            run_session(TrainSession, [Rung(name="static", attn_impl="pallas")], cfg,
+                        make_batch_fn(cfg, B, 0, seed=CNN["seed"]), 1,
+                        optimizer=adam(), adaptive=False, lr=CNN["lr"],
+                                device=device)
+            raised = ""
+        except NotImplementedError as e:
+            raised = str(e)
+        check(bool(raised), f"{arch}: training through the depthwise kernel did not raise")
+        print(f"[cnn-train] {arch} with attn_impl='pallas' raises at the first "
+              f"backward: {raised[:80]}...", flush=True)
+        free_cuda()
+
+    # -- phase 14: the adaptive ladder (no bf16 rung) on mobilenet-v2 ---------
+    cfg = get_config("mobilenet-v2")
+    ladder = default_rung_ladder(batch=B, attn_impl="naive", include_bf16=False)
+    res, _ = run_session(TrainSession, ladder, cfg, make_batch_fn(cfg, B, 0, seed=CNN["seed"]),
+                         CNN["adaptive_steps"], optimizer=adam(), adaptive=True,
+                         lr=CNN["lr"], trace=InterferenceTrace.parse(CNN["trace"]),
+                         device=device)
+    migrations = [(m.step, m.from_rung, m.to_rung, m.reason, m.kind)
+                  for m in res.timeline.migrations]
+    rungs_by_step = [s.rung for s in res.timeline.steps]
+    print(f"[cnn-adaptive] mobilenet-v2 under {CNN['trace']}: migrations {migrations}; "
+          f"rung per step {rungs_by_step}; step ms "
+          f"{[round(x, 1) for x in step_ms(res)]}; losses "
+          f"{[round(x, 4) for x in res.losses]}", flush=True)
+    check(migrations and all(m[4] == "in-place" for m in migrations),
+          f"no in-place migration: {migrations}")
+    check(all(x == x and abs(x) < 1e9 for x in res.losses), f"{res.losses}")
+    out["adaptive"] = {"arch": cfg.name, "migrations": migrations,
+                       "rungs": rungs_by_step, "losses": res.losses,
+                       "step_ms": step_ms(res)}
+    del res
+    free_cuda()
+    out["config"] = dict(CNN)
+    return out, launches
+
+
+def rmsnorm_path(ops, rn):
+    """Phase 15: ``ops.rmsnorm`` forward and forward+backward (the gradient
+    of sum(rmsnorm(x, s)) for x and s) at kernel_bench's full and CI shapes,
+    4096 x 2048 and 512 x 512, f32, as ``bench_rmsnorm`` drives the
+    reference. Returns (the JSON object, the launch counts)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    out, iters = {}, 20
+    for k in rn.launches:
+        rn.launches[k] = 0
+    for rows, d in ((4096, 2048), (512, 512)):
+        x = torch.randn(rows, d, generator=g, device="cuda", requires_grad=True)
+        s = torch.randn(d, generator=g, device="cuda", requires_grad=True)
+
+        def fwd():
+            with torch.no_grad():
+                return ops.rmsnorm(x, s)
+
+        def fwdbwd():
+            return torch.autograd.grad(ops.rmsnorm(x, s).sum(), (x, s))
+
+        out[f"{rows}x{d}"] = {"fwd_us": time_ms(fwd, iters=iters) * 1e3,
+                              "fwdbwd_us": time_ms(fwdbwd, iters=iters) * 1e3}
+    counts = dict(rn.launches)
+    calls = 2 * (3 + iters)  # two shapes, time_ms's 3 warm-up calls and the timed ones
+    check(counts == {"rmsnorm_fwd": 2 * calls, "rmsnorm_bwd": calls},
+          f"rmsnorm path launches {counts}, not {2 * calls} forwards and {calls} "
+          f"backwards")
+    print(f"[rmsnorm] ops.rmsnorm f32: {json.dumps(out)}; launches {counts}",
+          flush=True)
+    return out, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -970,9 +1293,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.kernels import backend, ref
+    from repro_torch.kernels import backend, ops, ref
+    from repro_torch.kernels import depthwise_conv as dw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_backward as fb
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.paging import gather_paged_kv
@@ -988,8 +1313,7 @@ def main() -> int:
 
     # -- phase 2: build -------------------------------------------------------
     t0 = time.perf_counter()
-    libs = ["flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
-            "flash_decode_spec"]
+    libs = list(backend.LIBRARIES)
     backend.build_libraries(libs)
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(libs)} for sm_90a in {build_s:.1f} s", flush=True)
@@ -1008,7 +1332,10 @@ def main() -> int:
     dec_paged = check_flash_decode_paged(fa, ref, gather_paged_kv)
     spec = check_flash_decode_spec(fa, ref, gather_paged_kv, paged=False)
     spec_paged = check_flash_decode_spec(fa, ref, gather_paged_kv, paged=True)
-    for c in fwd + dec + bwd_dq + bwd_dkv + dec_paged + spec + spec_paged:
+    dwc = check_depthwise(dw, ref)
+    rms_fwd, rms_bwd = check_rmsnorm(rn, ref)
+    for c in (fwd + dec + bwd_dq + bwd_dkv + dec_paged + spec + spec_paged + dwc
+              + rms_fwd + rms_bwd):
         check(c["ok"], f"kernel disagrees with its plain version: {c}")
 
     # -- phase 4: serve with the kernels ---------------------------------------
@@ -1074,6 +1401,8 @@ def main() -> int:
     train_out, train_launches = train_phases(fa, build_model, cfg)
     paged_out, spec_out, path_launches = paged_and_spec_phases(
         fa, serve, build_model, cfg, reqs, contig_streams)
+    cnn_out, cnn_launches = cnn_phases(dw, build_model, get_config)
+    rms_out, rms_launches = rmsnorm_path(ops, rn)
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -1120,6 +1449,17 @@ def main() -> int:
               "(_spec_decode_paged_kernel, pallas_call at :801)", spec_paged,
               {"spec_paged":
                path_launches["spec_paged"]["flash_decode_spec_paged"]}),
+        entry("depthwise_conv", "src/repro_torch/csrc/depthwise_conv.cu",
+              "src/repro/kernels/depthwise_conv.py:28 (_dw_kernel, "
+              "pallas_call at :60)", dwc,
+              {p: n for p, n in cnn_launches.items() if n}),
+        entry("rmsnorm_fwd", "src/repro_torch/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm.py:31 (_rmsnorm_kernel, pallas_call at :51)",
+              rms_fwd, {"rmsnorm": rms_launches["rmsnorm_fwd"]}),
+        entry("rmsnorm_bwd", "src/repro_torch/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm.py:38 (_rmsnorm_bwd_kernel, "
+              "pallas_call at :77)", rms_bwd,
+              {"rmsnorm": rms_launches["rmsnorm_bwd"]}),
     ]
     # the paths that ran after phase 4 launched these too
     for e in kernels:
@@ -1133,6 +1473,8 @@ def main() -> int:
                                     seconds_total=time.perf_counter() - t_start)}))
     print(json.dumps({"serve_paged": paged_out}))
     print(json.dumps({"serve_spec": spec_out}))
+    print(json.dumps({"cnn": cnn_out}))
+    print(json.dumps({"rmsnorm": rms_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

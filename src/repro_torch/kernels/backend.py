@@ -30,6 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# every kernel library of the port, one per csrc/<name>.cu
+LIBRARIES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
+             "flash_decode_spec", "depthwise_conv", "rmsnorm")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}  # loaded libraries, one per source
 
 
@@ -56,6 +60,26 @@ def attn_bf16(lowp: Optional[bool] = None) -> bool:
     if lowp is not None:
         return bool(lowp)
     return os.environ.get("REPRO_ATTN_BF16", "0") == "1"
+
+
+def check_device(*tensors) -> str:
+    """The device type ("cpu" or "cuda") all of a kernel's inputs share; a
+    wrapper runs the plain version on "cpu" and the kernel on "cuda"."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"inputs on different devices: {dev} vs {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    return dev.type
+
+
+def stream_args(t: torch.Tensor):
+    """(device ordinal, PyTorch's current stream handle) for a CUDA tensor."""
+    index = t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return index, torch.cuda.current_stream(t.device).cuda_stream
 
 
 def can_run_kernel(device) -> bool:

@@ -38,7 +38,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.backend import attn_bf16, check_launch, load_library
+from repro_torch.kernels.backend import (attn_bf16, check_device, check_launch,
+                                         load_library, stream_args)
 from repro_torch.kernels.ref import (ref_flash_attention_fwd, ref_flash_decode,
                                      ref_flash_decode_paged,
                                      ref_flash_decode_spec,
@@ -121,16 +122,6 @@ def _spec_lib():
     return lib
 
 
-def _check_device(*tensors) -> str:
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"inputs on different devices: {dev} vs {t.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {dev}")
-    return dev.type
-
-
 def _check_no_grad(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
@@ -143,14 +134,6 @@ def _check_dtype(*tensors) -> None:
     if dt not in _DTYPES or any(t.dtype != dt for t in tensors):
         raise TypeError(f"flash kernels take f32 or bf16 inputs of one dtype, "
                         f"got {[t.dtype for t in tensors]}")
-
-
-def _stream_args(t: torch.Tensor):
-    """(device ordinal, PyTorch's current stream handle) for a CUDA tensor."""
-    index = t.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    return index, torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +160,7 @@ def _check_mha(q, k, v) -> None:
 def _fwd_lse(q, k, v, causal: bool, q_offset: int, lowp: bool):
     """The forward kernel (its plain version on the CPU), no autograd."""
     B, H, Sq, hd = q.shape
-    if _check_device(q, k, v) == "cpu":
+    if check_device(q, k, v) == "cpu":
         return ref_flash_attention_fwd(q, k, v, causal=causal,
                                        q_offset=int(q_offset), lowp=lowp)
     if hd not in FWD_HEAD_DIMS:
@@ -190,7 +173,7 @@ def _fwd_lse(q, k, v, causal: bool, q_offset: int, lowp: bool):
     if o.numel() == 0:
         return o, lse
     lib = _fwd_lib()
-    device, stream = _stream_args(q)
+    device, stream = stream_args(q)
     rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        lse.data_ptr(), B, H, Sq, Sk, hd, int(bool(causal)),
                        int(q_offset), 1.0 / math.sqrt(hd),
@@ -282,7 +265,7 @@ def _table(block_table, B: int, num_blocks: int, device) -> torch.Tensor:
 def _check_decode_inputs(what: str, q, k, v) -> None:
     _check_no_grad(what, q, k, v)
     _check_dtype(q, k, v)
-    _check_device(q, k, v)
+    check_device(q, k, v)
 
 
 def _check_kernel_geometry(what: str, need: int, limit: int, hd: int, hdv: int,
@@ -332,7 +315,7 @@ def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
     _check_kernel_geometry("flash_decode", lib.flash_decode_smem_bytes(G, hd, hdv),
                            lib.flash_decode_max_smem_bytes(), hd, hdv, k,
                            f", G={G}")
-    device, stream = _stream_args(q)
+    device, stream = stream_args(q)
     rc = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           lengths.data_ptr(), out.data_ptr(), B, K, G, Smax,
                           hd, hdv, float(scale),
@@ -388,7 +371,7 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
         "flash_decode_paged", lib.flash_decode_paged_smem_bytes(G, hd, hdv, T),
         lib.flash_decode_paged_max_smem_bytes(), hd, hdv, k_pool,
         f", G={G}, T={T}")
-    device, stream = _stream_args(q)
+    device, stream = stream_args(q)
     rc = lib.flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, K, G, NB, bs, T, hd, hdv,
@@ -447,7 +430,7 @@ def flash_decode_spec(q, k, v, lengths, *, scale: Optional[float] = None,
         return out
     lib = _spec_lib()
     _spec_geometry("flash_decode_spec", lib, S, G, hd, hdv, 0, k)
-    device, stream = _stream_args(q)
+    device, stream = stream_args(q)
     rc = lib.flash_decode_spec(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                lengths.data_ptr(), out.data_ptr(), B, K, S, G,
                                Smax, hd, hdv, float(scale),
@@ -495,7 +478,7 @@ def flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
         return out
     lib = _spec_lib()
     _spec_geometry("flash_decode_spec_paged", lib, S, G, hd, hdv, T, k_pool)
-    device, stream = _stream_args(q)
+    device, stream = stream_args(q)
     rc = lib.flash_decode_spec_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, K, S, G, NB, bs, T, hd, hdv,

@@ -18,10 +18,10 @@ import math
 
 import torch
 
-from repro_torch.kernels.backend import check_launch, load_library
-from repro_torch.kernels.flash_attention import (FWD_HEAD_DIMS, _check_device,
-                                                 _check_dtype, _check_mha,
-                                                 _stream_args)
+from repro_torch.kernels.backend import (check_device, check_launch,
+                                         load_library, stream_args)
+from repro_torch.kernels.flash_attention import (FWD_HEAD_DIMS, _check_dtype,
+                                                 _check_mha)
 from repro_torch.kernels.ref import (ref_flash_attention_bwd, ref_flash_bwd_dkv,
                                     ref_flash_bwd_dq)
 
@@ -76,7 +76,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     ``delta = rowsum(do * o)`` (both (B,H,Sq) f32)."""
     _check_mha(q, k, v)
     _check_dtype(q, k, v, do)
-    if _check_device(q, k, v, do, lse, delta) == "cpu":
+    if check_device(q, k, v, do, lse, delta) == "cpu":
         return ref_flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
                                 q_offset=int(q_offset), lowp=lowp)
     q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta,
@@ -84,7 +84,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     B, H, Sq, hd = q.shape
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
-    device, stream = _stream_args(q)
+    device, stream = stream_args(q)
     rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                           dq.data_ptr(), B, H, Sq, k.shape[2], hd,
@@ -102,7 +102,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     forward's ``lse`` and ``delta = rowsum(do * o)``."""
     _check_mha(q, k, v)
     _check_dtype(q, k, v, do)
-    if _check_device(q, k, v, do, lse, delta) == "cpu":
+    if check_device(q, k, v, do, lse, delta) == "cpu":
         return ref_flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
                                  q_offset=int(q_offset), lowp=lowp)
     q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta,
@@ -111,7 +111,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     lib = _bwd_lib()
-    device, stream = _stream_args(q)
+    device, stream = stream_args(q)
     rc = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                            dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2],
@@ -128,7 +128,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """(dq, dk, dv) f32 of flash attention: ``delta = rowsum(do * o)`` in
     torch, as the reference's ``_bwd_call`` computes it outside any kernel,
     then the two backward kernels. On the CPU: ``ref_flash_attention_bwd``."""
-    if _check_device(q, k, v, o, lse, do) == "cpu":
+    if check_device(q, k, v, o, lse, do) == "cpu":
         _check_mha(q, k, v)
         _check_dtype(q, k, v, do)
         return ref_flash_attention_bwd(q, k, v, o, lse, do, causal=causal,

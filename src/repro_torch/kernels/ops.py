@@ -2,15 +2,28 @@
 
 The model code reaches these through ``impl="pallas"``, the impl name the
 JAX package uses for its Pallas kernels; here it means the hand-written
-Hopper kernels of ``kernels/flash_attention.py`` (their plain versions on
-the CPU).
+Hopper kernels of ``kernels/flash_attention.py``, ``kernels/depthwise_conv.py``
+and ``kernels/rmsnorm.py`` (their plain versions on the CPU).
 """
 from __future__ import annotations
 
+from repro_torch.kernels.depthwise_conv import depthwise_conv as _dw
 from repro_torch.kernels.flash_attention import (flash_attention_mha, flash_decode,
                                                  flash_decode_paged,
                                                  flash_decode_spec,
                                                  flash_decode_spec_paged)
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    """x: (..., d); scale: (d,). Differentiable (the backward is a kernel)."""
+    return _rmsnorm(x, scale, eps=eps)
+
+
+def depthwise_conv(x, w):
+    """x: (B,H,W,C); w: (kh,kw,C); stride 1, SAME padding, odd kernel dims.
+    Forward only, as in the reference: a backward through it raises."""
+    return _dw(x, w)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):

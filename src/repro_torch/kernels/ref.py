@@ -11,6 +11,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.paging.paged_cache import gather_paged_kv
 
@@ -186,3 +187,49 @@ def ref_flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
     return ref_flash_decode_spec(q, gather_paged_kv(k_pool, block_table),
                                  gather_paged_kv(v_pool, block_table), lengths,
                                  scale=scale, lowp=lowp)
+
+
+def ref_rmsnorm(x, scale, eps: float = 1e-5):
+    """x: (..., d); scale: (d,). ``x * rsqrt(mean(x^2) + eps) * scale`` with
+    the statistic in f32, returned in x's dtype."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xf * scale.float()).to(x.dtype)
+
+
+def ref_rmsnorm_bwd(x, scale, g, eps: float = 1e-5):
+    """(dx in x's dtype, dscale in scale's dtype) of ``ref_rmsnorm`` for the
+    output cotangent ``g``, from the formulas of the reference's backward
+    kernel (``src/repro/kernels/rmsnorm.py``): with
+    ``r = rsqrt(mean(x^2) + eps)`` and ``gs = g * scale``, all in f32,
+
+      dx     = r * gs - x * r^3 * mean(gs * x)
+      dscale = sum over rows of g * x * r
+    """
+    xf, sf, gf = x.float(), scale.float(), g.float()
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    gs = gf * sf
+    dot = (gs * xf).mean(-1, keepdim=True)
+    dx = r * gs - xf * (r * r * r) * dot
+    dscale = (gf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def ref_depthwise_conv(x, w):
+    """x: (B,H,W,C); w: (kh,kw,C) with odd kh and kw; stride 1, SAME
+    padding. Returns (B,H,W,C) in x's dtype.
+
+    Tap by tap, as the kernel sums: the input zero-padded by (kh-1)/2 rows
+    and (kw-1)/2 columns on each side, then for each tap (a, c) in row-major
+    order ``acc += x[h+a-ph, w+c-pw] * w[a, c]`` in f32.
+    """
+    B, H, W, C = x.shape
+    kh, kw = w.shape[0], w.shape[1]
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    xp = F.pad(x.float(), (0, 0, pw, pw, ph, ph))
+    wf = w.float()
+    acc = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
+    for a in range(kh):
+        for c in range(kw):
+            acc = acc + xp[:, a:a + H, c:c + W, :] * wf[a, c]
+    return acc.to(x.dtype)

@@ -875,6 +875,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "cnn":
+        raise SystemExit("CNN archs have no decode path")
     max_seq = args.max_seq or 2 * (args.prompt_len + args.gen)
     impl = args.attn_impl
     if impl == "auto":

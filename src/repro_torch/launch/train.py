@@ -9,15 +9,25 @@ controller and migrates in place when interference appears;
 (``start:stop:slowdown[,...]``) and ``--thermal-trace`` closed-loop thermal
 throttling (``heat:cool:slowdown[:trigger:release]``, paper §3.3) so the
 adaptive path can be exercised on a quiet machine. ``--arch`` accepts any
-registry config the port has (the dense family); ``--device cuda`` (the
-default) runs the hand-written kernels and raises without a card,
-``--device cpu`` runs their plain versions.
+registry config the port has: ``llama3.2-1b`` (the dense family) and the
+paper's CNNs ``resnet34``, ``mobilenet-v2`` and ``shufflenet-v2`` (trained on
+synthetic images; ``--seq`` is unused). A CNN trains on the plain path
+(``--attn-impl naive``, which ``auto`` picks at the default ``--seq``): the
+depthwise kernel that ``pallas`` selects has no gradient, as in the
+reference, and its first backward raises. With ``--adaptive`` a CNN stops
+once the ladder reaches its bf16 rung, as the reference does (the conv
+refuses f32 images with bf16 weights); ``TrainSession`` over
+``default_rung_ladder(include_bf16=False)`` runs the adaptive CNN path.
+``--device cuda`` (the default) runs the hand-written kernels and raises
+without a card, ``--device cpu`` runs their plain versions.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
       --steps 50 --batch 4 --seq 512 --attn-impl pallas --optimizer adam
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \
       --steps 12 --batch 2 --seq 64 --attn-impl pallas --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mobilenet-v2 \
+      --steps 20 --batch 128 --attn-impl naive --optimizer adam --lr 1e-3
   ... --adaptive --interference-trace 40:80:3.0
 """
 from __future__ import annotations

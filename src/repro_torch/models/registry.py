@@ -1,19 +1,20 @@
 """Model API over the ported families.
 
 ``build_model(cfg)`` returns a ``Model`` whose functions take params and
-inputs and return tensors, as the JAX package's do. Only ``family="dense"``
-is ported; other families raise.
+inputs and return tensors, as the JAX package's do. The dense decoder and
+the CNN family (``family="cnn"``: init, forward and loss only; its serving
+fields are None, as in the reference) are ported; other families raise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import cnn, transformer
 
 
 @dataclasses.dataclass
@@ -23,19 +24,21 @@ class Model:
     init: Callable[[torch.Generator], Any]  # generator -> params
     forward: Callable[[Any, dict], Any]  # (params, batch) -> logits
     loss: Callable[[Any, dict], Any]  # (params, batch) -> scalar
-    prefill: Callable  # (params, batch) -> (logits, cache)
-    init_cache: Callable  # (batch, max_len, dtype) -> cache
-    decode_step: Callable  # (params, cache, tokens, cache_len) -> (logits, cache)
+    # the serving surface; None for a family that does not decode (CNNs)
+    prefill: Optional[Callable] = None  # (params, batch) -> (logits, cache)
+    init_cache: Optional[Callable] = None  # (batch, max_len, dtype) -> cache
+    # (params, cache, tokens, cache_len) -> (logits, cache)
+    decode_step: Optional[Callable] = None
     # (num_blocks, block_size, dtype) -> paged pools
-    init_paged_cache: Callable
+    init_paged_cache: Optional[Callable] = None
     # (params, cache, tokens, cache_len, block_table) -> (logits, cache)
-    paged_decode_step: Callable
+    paged_decode_step: Optional[Callable] = None
     # (params, cache, tokens, start, block_table, last_pos, write) -> (logits, cache)
-    paged_prefill_step: Callable
+    paged_prefill_step: Optional[Callable] = None
     # (params, cache, tokens (B,S), cache_len) -> (logits (B,S,V), cache)
-    spec_decode_step: Callable
+    spec_decode_step: Optional[Callable] = None
     # (params, cache, tokens (B,S), cache_len, block_table) -> (logits, cache)
-    paged_spec_decode_step: Callable
+    paged_spec_decode_step: Optional[Callable] = None
     # the exact build_model kwargs this model was constructed with, so a
     # single-knob rebuild preserves the rest
     build_kwargs: dict = dataclasses.field(default_factory=dict)
@@ -55,12 +58,24 @@ def rebuild_model(model: Model, **overrides) -> Model:
 def build_model(cfg: ModelConfig, *, impl: str = "chunked", chunk: int = 1024,
                 remat: str = "none", param_dtype=torch.float32,
                 device="cuda") -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "cnn"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     dev = resolve_device(device)
     kw = dict(impl=impl, chunk=chunk, remat=remat, param_dtype=param_dtype,
               device=dev)
+    if cfg.family == "cnn":
+        # the depthwise kernel with impl="pallas", the plain path otherwise
+        cnn_impl = "pallas" if impl == "pallas" else "naive"
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda gen: cnn.init_cnn(gen, cfg, param_dtype),
+            forward=lambda p, b: cnn.forward_cnn(p, cfg, b["images"],
+                                                 impl=cnn_impl),
+            loss=lambda p, b: cnn.loss_cnn(p, cfg, b, impl=cnn_impl),
+            build_kwargs=kw,
+        )
 
     def prefill(p, b):
         return transformer.prefill_decoder(p, cfg, b["tokens"], impl=impl,

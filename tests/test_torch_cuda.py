@@ -311,3 +311,117 @@ def test_train_step_on_the_card_goes_through_the_kernels():
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             assert after[name] - before[name] == n, (impl, name)
     np.testing.assert_allclose(losses["pallas"], losses["naive"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# depthwise conv and RMSNorm
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kh,kw", [((2, 8, 8, 16), 3, 3), ((1, 13, 11, 58), 3, 3),
+                                         ((2, 16, 16, 116), 5, 5), ((1, 7, 9, 232), 3, 5),
+                                         ((1, 3, 2, 33), 7, 1), ((2, 32, 32, 192), 3, 3)])
+def test_depthwise_conv_matches_plain(dtype, shape, kh, kw):
+    from repro_torch.kernels import depthwise_conv as dw
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    w = torch.randn(kh, kw, shape[-1], generator=g, device=dev).to(dtype)
+    before = dw.launches["depthwise_conv"]
+    got = dw.depthwise_conv(x, w)
+    want = ref.ref_depthwise_conv(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), **(BF16 if dtype == torch.bfloat16 else F32))
+    assert dw.launches["depthwise_conv"] == before + 1
+
+
+@pytest.mark.cuda
+def test_depthwise_conv_backward_raises_on_the_card():
+    from repro_torch.kernels import depthwise_conv as dw
+    dev = _device()
+    x = torch.randn(1, 6, 6, 8, device=dev, requires_grad=True)
+    w = torch.randn(3, 3, 8, device=dev)
+    out = dw.depthwise_conv(x, w)
+    with pytest.raises(NotImplementedError, match="no custom_vjp"):
+        out.sum().backward()
+    with pytest.raises(ValueError, match="kernel widths"):
+        dw.depthwise_conv(x.detach(), torch.randn(3, 9, 8, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(7, 64), (12, 96), (51, 256), (300, 2048), (9, 100),
+                                    (5, 1)])
+def test_rmsnorm_fwd_bwd_match_plain(dtype, rows, d):
+    from repro_torch.kernels import rmsnorm as rn
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(rows * d)
+    x, cot = (torch.randn(rows, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    s = torch.randn(d, generator=g, device=dev).to(dtype)
+    tol = BF16 if dtype == torch.bfloat16 else F32
+    before = dict(rn.launches)
+    y = rn.rmsnorm_fwd(x, s)
+    dx, ds = rn.rmsnorm_bwd(x, s, cot)
+    want_dx, want_ds = ref.ref_rmsnorm_bwd(x, s, cot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), ref.ref_rmsnorm(x, s).float(), **tol)
+    torch.testing.assert_close(dx.float(), want_dx.float(), **tol)
+    # dscale sums over the rows: the partials add in another order
+    torch.testing.assert_close(ds.float(), want_ds.float(),
+                               **(tol if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)))
+    assert rn.launches == {"rmsnorm_fwd": before["rmsnorm_fwd"] + 1,
+                           "rmsnorm_bwd": before["rmsnorm_bwd"] + 1}
+
+
+@pytest.mark.cuda
+def test_rmsnorm_autograd_goes_through_both_kernels():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    dev = _device()
+    x = torch.randn(4, 3, 96, device=dev, requires_grad=True)
+    s = torch.randn(96, device=dev, requires_grad=True)
+    before = dict(rn.launches)
+    ops.rmsnorm(x, s).square().sum().backward()
+    xr, sr = x.detach().clone().requires_grad_(), s.detach().clone().requires_grad_()
+    ref.ref_rmsnorm(xr, sr).square().sum().backward()
+    torch.testing.assert_close(x.grad, xr.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s.grad, sr.grad, rtol=1e-4, atol=1e-4)
+    assert rn.launches["rmsnorm_fwd"] == before["rmsnorm_fwd"] + 1
+    assert rn.launches["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mobilenet-v2", "shufflenet-v2"])
+def test_cnn_forward_on_the_card_goes_through_the_kernel(arch):
+    """The reduced CNNs' logits through the depthwise kernel against the
+    plain path on the card (TF32 off for the convs)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_cnn_batch
+    from repro_torch.kernels import depthwise_conv as dw
+    from repro_torch.models import build_model
+    dev = _device()
+    cfg = dataclasses.replace(get_config(arch).reduced(), cnn_stages=(2, 2, 2) if
+                              arch == "shufflenet-v2" else (1, 2, 3, 4, 3, 3, 1))
+    b = synthetic_cnn_batch(np.random.default_rng(0), 8, cfg.image_size,
+                            cfg.in_channels, cfg.n_classes)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = build_model(cfg, impl="pallas", device=dev)
+        params = model.init(model.generator(0))
+        before = dw.launches["depthwise_conv"]
+        with torch.no_grad():
+            got = model.forward(params, b)
+            n = dw.launches["depthwise_conv"] - before
+            want = build_model(cfg, impl="naive", device=dev).forward(params, b)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert n == (13 if arch == "mobilenet-v2" else 3)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
