@@ -15,10 +15,11 @@ Phases (any failure raises and the script exits non-zero):
 3. Kernels: calls each kernel's wrapper on the card at the shapes of the
    serve and train paths and holds it against its plain PyTorch version
    (``kernels/ref.py``) on the same inputs: 2e-5 in f32, 5e-2 with bf16 dot
-   inputs. Times the kernel, the plain version and one PyTorch library call
-   for the same function (``scaled_dot_product_attention``, its backward
-   through ``torch.autograd.grad`` for the backward kernels; used here only
-   as a yardstick), and computes the least time the card could take (bytes
+   inputs, 1e-3 for the attention backward's bf16 inputs without lowp.
+   Times the kernel, the plain version and one PyTorch library call for the
+   same function (``scaled_dot_product_attention``, its backward through
+   ``torch.autograd.grad`` for the backward kernels; used here only as a
+   yardstick), and computes the least time the card could take (bytes
    over 3.35 TB/s or operations over the type's peak, the larger).
 4. Serve: llama3.2-1b at full width (16 layers, d_model 2048), f32 params
    drawn by the port from a seeded generator, through
@@ -47,8 +48,11 @@ Phases (any failure raises and the script exits non-zero):
 8. Adaptive: full width and depth, the default rung ladder (microbatch 1,
    2, then 4 in bf16) under the interference trace ``2:6:3.0``, 10 steps,
    wall-clock latencies. At least one interference downgrade, every
-   migration in place, every loss finite, and each step on the bf16 rung
-   launches the backward kernels 16 times each.
+   migration in place, every loss finite, and each step launches the three
+   attention kernels 16 x its microbatch count times each (the bf16 rung's
+   backward runs the tensor-core kernels without lowp). Prints the median
+   step ms of each rung and a ``torch.profiler`` breakdown of one more step
+   on the last rung.
 9. Paged serve: llama3.2-1b at full width, f32, 8 slots, max_seq 1024,
    ``kv_layout="paged"`` with 16-position blocks, on the phase-4 requests
    with half of them sharing a 128-token prefix and two of them identical
@@ -131,6 +135,10 @@ F32_FLOPS = 67e12            # f32 on the CUDA cores
 BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+# the attention backward with bf16 inputs but f32 dot inputs (no lowp): its
+# split products stay within 2^-16 sum |x||y| of the f32 ones (about 1e-5
+# relative; csrc/flash_bwd.cu); the tolerance of tests/test_torch_cuda.py
+SPLIT_TOL = dict(rtol=1e-3, atol=1e-3)
 LOGIT_TOL = 1e-3  # pallas vs naive logits differ by f32 summation order only
 
 SERVE = dict(slots=8, requests=16, prompt_lo=192, prompt_hi=320, gen=32,
@@ -299,16 +307,18 @@ def check_flash_decode(fa, ref):
 
 def check_flash_bwd(fb, ref):
     """The two backward kernels at the train step's shape, B=4, H=32, S=512,
-    hd=64, causal, in f32 and in bf16 with lowp; then a ragged case, Sq=300
-    against Sk=373, full attention. Both kernels get the same o, lse and
-    delta as their plain versions. The library yardstick is one
-    ``torch.autograd.grad`` through SDPA (dq, dk and dv together; its
-    forward runs before the timing)."""
+    hd=64, causal, in their three modes: f32 (FFMA), bf16 with lowp and
+    bf16 without it (tensor cores, p and ds split into bf16 pairs, held to
+    SPLIT_TOL); then a ragged case, Sq=300 against Sk=373, full attention.
+    Both kernels get the same o, lse and delta as their plain versions. The
+    library yardstick is one ``torch.autograd.grad`` through SDPA (dq, dk
+    and dv together; its forward runs before the timing)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(3)
     dq_checks, dkv_checks = [], []
     for B, Sq, Sk, causal, dtype, lowp in [(4, 512, 512, True, torch.float32, False),
                                            (4, 512, 512, True, torch.bfloat16, True),
+                                           (4, 512, 512, True, torch.bfloat16, False),
                                            (2, 300, 373, False, torch.float32, False)]:
         H, hd = 32, 64
         q, do = (torch.randn(B, H, Sq, hd, generator=g, device="cuda").to(dtype)
@@ -322,7 +332,8 @@ def check_flash_bwd(fb, ref):
         dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
         want_dq, want_dk, want_dv = ref.ref_flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        tol = BF16_TOL if lowp else F32_TOL
+        split = dtype == torch.bfloat16 and not lowp
+        tol = BF16_TOL if lowp else SPLIT_TOL if split else F32_TOL
         err_q, ok_q = max_err(dq, want_dq, tol)
         err_k, ok_k = max_err(dk, want_dk, tol)
         err_v, ok_v = max_err(dv, want_dv, tol)
@@ -336,7 +347,9 @@ def check_flash_bwd(fb, ref):
         elt = q.element_size()
         # live (query, key) pairs: the causal triangle or the full rectangle
         pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
-        peak = BF16_FLOPS if lowp else F32_FLOPS
+        # bf16 inputs run on the tensor cores (lowp or split); an f32 call
+        # with lowp is rounded to bf16 by the wrapper
+        peak = BF16_FLOPS if lowp or split else F32_FLOPS
         inputs = (2 * B * H * Sq * hd + 2 * B * H * Sk * hd) * elt + 2 * B * H * Sq * 4
 
         def bound(nbytes, flops):
@@ -351,9 +364,12 @@ def check_flash_bwd(fb, ref):
                   "dtype": str(dtype).replace("torch.", ""), "lowp": lowp,
                   "tol": tol["atol"], "library_ms": library_ms,
                   "library_computes": "dq, dk and dv in one call"}
-        # dq: q.k, do.v and ds.k; dkv: k.q, v.do, p^T do and ds^T q
-        b_q, by_q = bound(inputs + B * H * Sq * hd * 4, 3 * 2 * hd * pairs)
-        b_kv, by_kv = bound(inputs + 2 * B * H * Sk * hd * 4, 4 * 2 * hd * pairs)
+        # dq: q.k, do.v and ds.k; dkv: k.q, v.do, p^T do and ds^T q. Split
+        # (bf16 without lowp): ds.k, p^T do and ds^T q each run twice, as hi
+        # and lo halves, so 4 and 6 products at the bf16 peak
+        b_q, by_q = bound(inputs + B * H * Sq * hd * 4, (4 if split else 3) * 2 * hd * pairs)
+        b_kv, by_kv = bound(inputs + 2 * B * H * Sk * hd * 4,
+                            (6 if split else 4) * 2 * hd * pairs)
         dq_checks.append(dict(common, max_abs_err=err_q, ok=ok_q, bound_ms=b_q,
                               ref_max_abs=ref_max["dq"],
                               bound_by=by_q,
@@ -953,8 +969,7 @@ def train_phases(fa, build_model, cfg, device="cuda"):
     counts). ``device`` is for rehearsing the control flow on the CPU."""
     # -- phase 6: train with the kernels, then the plain path ------------------
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.engine.events import InterferenceTrace
-    from repro_torch.engine.rungs import Rung, default_rung_ladder
+    from repro_torch.engine.rungs import Rung
     from repro_torch.engine.session import TrainSession
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.optim.optimizers import adam
@@ -1054,7 +1069,29 @@ def train_phases(fa, build_model, cfg, device="cuda"):
     free_cuda()
 
     # -- phase 8: adaptive ladder under interference ------------------------------
-    ladder = default_rung_ladder(batch=B, microbatch=1, attn_impl="pallas")
+    adaptive_out = adaptive_phase(fa, cfg, batch_fn, device)
+    return {
+        "config": {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "params": cfg.param_count(), "dtype": "float32", **TRAIN},
+        "pallas": runs["pallas"], "naive": runs["naive"],
+        "first_step_grad_rel_err": grad_rel, "loss_rel_diff_max": max(rel),
+        "resume": {"n_layers": cut.n_layers, "start": start, "losses": resumed,
+                   "uninterrupted": ref_tail, "rel_diff_max": rel_resume,
+                   "ckpt_gb": ckpt_gb, "restore_s": restore_s},
+        "adaptive": adaptive_out}, train_launches
+
+
+def adaptive_phase(fa, cfg, batch_fn, device="cuda"):
+    """Phase 8: the default rung ladder (microbatch 1, 2, then 4 in bf16)
+    under the interference trace 2:6:3.0, 10 steps, with the checks of the
+    module docstring; returns its JSON object, with the median step ms of
+    each rung and a profile of one more step on the last rung."""
+    from repro_torch.engine.events import InterferenceTrace
+    from repro_torch.engine.rungs import default_rung_ladder
+    from repro_torch.engine.session import TrainSession
+    from repro_torch.optim.optimizers import adam
+
+    ladder = default_rung_ladder(batch=TRAIN["batch"], microbatch=1, attn_impl="pallas")
     snaps = []
 
     def counted_batches(step):  # launches so far, at the start of every step
@@ -1082,20 +1119,33 @@ def train_phases(fa, build_model, cfg, device="cuda"):
             n = snaps[i + 1][kname] - snaps[i][kname]
             check(n == cfg.n_layers * micro[rname],
                   f"step {i} on {rname}: {kname} launched {n} times")
+    ms = step_ms(res)
+    by_rung = {r.name: statistics.median(t for t, n in zip(ms, rungs_by_step)
+                                         if n == r.name)
+               for r in ladder if r.name in rungs_by_step}
+    print(f"[adaptive] median step ms by rung: "
+          f"{ {k: round(v, 2) for k, v in by_rung.items()} }; step ms "
+          f"{[round(x, 1) for x in ms]}", flush=True)
     adaptive_out = {"migrations": migrations, "rungs": rungs_by_step,
-                    "losses": res.losses, "step_ms": step_ms(res),
+                    "losses": res.losses, "step_ms": ms,
+                    "median_step_ms_by_rung": by_rung,
                     "reached_bf16": "lean" in rungs_by_step}
+    last = next(r for r in ladder if r.name == rungs_by_step[-1])
+    host_ms, dev_ms, top = profile_train_step(
+        last.cached_step(cfg, adam(), lr=TRAIN["lr"], device=device), res.state,
+        batch_fn(adaptive_steps))
+    bwd_ms = sum(t for t, _, k in top if "flash_bwd" in k)
+    print(f"[profile] one step on {last.name}: host {host_ms:.1f} ms, device busy "
+          f"{dev_ms:.1f} ms; the backward kernels {bwd_ms:.2f} ms in "
+          f"{sum(n for _, n, k in top if 'flash_bwd' in k)} launches", flush=True)
+    for t, n, k in top[:8]:
+        print(f"[profile]   {t:8.3f} ms {n:5d} calls  {k[:90]}")
+    adaptive_out["profile"] = {"rung": last.name, "host_ms": host_ms, "device_ms": dev_ms,
+                               "backward_kernels_ms": bwd_ms,
+                               "top": [[t, n, k[:120]] for t, n, k in top[:8]]}
     del res
     free_cuda()
-    return {
-        "config": {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-                   "params": cfg.param_count(), "dtype": "float32", **TRAIN},
-        "pallas": runs["pallas"], "naive": runs["naive"],
-        "first_step_grad_rel_err": grad_rel, "loss_rel_diff_max": max(rel),
-        "resume": {"n_layers": cut.n_layers, "start": start, "losses": resumed,
-                   "uninterrupted": ref_tail, "rel_diff_max": rel_resume,
-                   "ckpt_gb": ckpt_gb, "restore_s": restore_s},
-        "adaptive": adaptive_out}, train_launches
+    return adaptive_out
 
 
 # ---------------------------------------------------------------------------
@@ -1461,6 +1511,10 @@ def main() -> int:
               "pallas_call at :77)", rms_bwd,
               {"rmsnorm": rms_launches["rmsnorm_bwd"]}),
     ]
+    # the backward's three modes at the train shape, side by side
+    for e in kernels[1:3]:
+        e["ms_by_mode"] = {f"{c['dtype']}{'+lowp' if c['lowp'] else ''}": c["ms"]
+                           for c in e["checks"] if c["shape"][0] == TRAIN["batch"]}
     # the paths that ran after phase 4 launched these too
     for e in kernels:
         for p in ("spec_contig", "serve_paged", "swap", "spec_paged"):

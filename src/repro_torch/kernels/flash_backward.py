@@ -9,6 +9,13 @@ hand-written Hopper kernels of ``csrc/flash_bwd.cu``.
 computes it outside any kernel, then the two kernels. As for the forward
 wrappers, a CPU tensor runs the plain version (``kernels/ref.py``) and a
 CUDA tensor launches the kernel or raises; ``launches`` counts the launches.
+
+On the card the dtype and ``lowp`` choose the numeric mode, as the
+reference's ``cdt`` does: with ``lowp`` (bf16 dot inputs) an f32 call is
+rounded to bf16 here and every product runs on the tensor cores; bf16
+inputs without ``lowp`` run the tensor-core kernels with p and ds kept f32
+as split bf16 pairs; f32 inputs without ``lowp`` run the f32 FFMA kernels.
+None of them falls back to another.
 """
 from __future__ import annotations
 
@@ -51,10 +58,10 @@ def _check_aligned(name: str, *tensors) -> None:
                              f"inputs must be 16-byte aligned")
 
 
-def _bwd_args(q, k, v, do, lse, delta, name: str):
+def _bwd_args(q, k, v, do, lse, delta, name: str, lowp: bool):
     """Contiguous, checked kernel inputs: autograd hands ``do`` over
     non-contiguous, and the GQA broadcast of ``ops.flash_attention`` leaves
-    k and v as transposed views."""
+    k and v as transposed views. Under ``lowp`` they are bf16."""
     B, H, Sq, hd = q.shape
     if hd not in FWD_HEAD_DIMS:
         raise ValueError(f"{name} is built for head dims {FWD_HEAD_DIMS}, "
@@ -65,6 +72,10 @@ def _bwd_args(q, k, v, do, lse, delta, name: str):
                          f"{tuple(lse.shape)} and delta {tuple(delta.shape)} "
                          f"must match q {tuple(q.shape)}")
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    if lowp and q.dtype == torch.float32:
+        # round to nearest even, as astype(bfloat16) rounds the reference's
+        # dot inputs: the tensor-core kernels then run as for bf16 inputs
+        q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
     lse, delta = (t.float().contiguous() for t in (lse, delta))
     _check_aligned(name, q, k, v, do, lse, delta)
     return q, k, v, do, lse, delta
@@ -80,7 +91,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
         return ref_flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
                                 q_offset=int(q_offset), lowp=lowp)
     q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta,
-                                        "flash_bwd_dq")
+                                        "flash_bwd_dq", lowp)
     B, H, Sq, hd = q.shape
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
@@ -106,7 +117,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
         return ref_flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
                                  q_offset=int(q_offset), lowp=lowp)
     q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta,
-                                        "flash_bwd_dkv")
+                                        "flash_bwd_dkv", lowp)
     B, H, Sq, hd = q.shape
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)

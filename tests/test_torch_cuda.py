@@ -7,7 +7,8 @@ on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of ``tests/test_kernels.py``: 2e-5 at f32, 5e-2 with
-bf16 dot inputs.
+bf16 dot inputs; the attention backward with bf16 inputs and f32 dot
+inputs (no ``lowp``) is held to 1e-3 (``SPLIT``).
 """
 import pytest
 import torch
@@ -215,15 +216,30 @@ BWD_CASES = [  # Sq, Sk, hd, causal, q_offset
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,lowp", CASES)
-@pytest.mark.parametrize("Sq,Sk,hd,causal,q_offset", BWD_CASES)
-def test_flash_bwd_matches_plain(dtype, lowp, Sq, Sk, hd, causal, q_offset):
+# the backward's three numeric modes: f32 (FFMA kernels), lowp (bf16 tensor
+# cores; an f32 call is rounded to bf16 first) and bf16 without lowp (tensor
+# cores with p and ds split into bf16 pairs)
+BWD_MODES = CASES + [(torch.float32, True), (torch.bfloat16, False)]
+# bf16 without lowp: the split leaves each output within 2^-16 sum |x||y| of
+# the f32 product (csrc/flash_bwd.cu), about 1e-5 relative; the plain
+# version's f32 sums and exp differ by less, so 1e-3 holds with room
+SPLIT = dict(rtol=1e-3, atol=1e-3)
+
+
+def _bwd_tol(dtype, lowp):
+    if lowp:
+        return BF16
+    return F32 if dtype == torch.float32 else SPLIT
+
+
+def _check_bwd(dtype, lowp, B, H, Sq, Sk, hd, causal, q_offset):
+    """Both backward kernels against the plain version on one seeded input;
+    each kernel launched once."""
     dev = _device()
     g = torch.Generator(device=dev).manual_seed(Sq + Sk)
-    q, do = (torch.randn(2, 3, Sq, hd, generator=g, device=dev).to(dtype)
+    q, do = (torch.randn(B, H, Sq, hd, generator=g, device=dev).to(dtype)
              for _ in range(2))
-    k, v = (torch.randn(2, 3, Sk, hd, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, H, Sk, hd, generator=g, device=dev).to(dtype)
             for _ in range(2))
     o, lse = ref.ref_flash_attention_fwd(q, k, v, causal=causal,
                                          q_offset=q_offset, lowp=lowp)
@@ -235,13 +251,44 @@ def test_flash_bwd_matches_plain(dtype, lowp, Sq, Sk, hd, causal, q_offset):
                               q_offset=q_offset, lowp=lowp)
     want_dq, want_dk, want_dv = ref.ref_flash_attention_bwd(
         q, k, v, o, lse, do, causal=causal, q_offset=q_offset, lowp=lowp)
-    tol = BF16 if lowp else F32
+    tol = _bwd_tol(dtype, lowp)
     for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
                             ("dv", dv, want_dv)):
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name}: {m}")
     assert fb.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert fb.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", BWD_MODES)
+@pytest.mark.parametrize("Sq,Sk,hd,causal,q_offset", BWD_CASES)
+def test_flash_bwd_matches_plain(dtype, lowp, Sq, Sk, hd, causal, q_offset):
+    """Tolerances: 2e-5 in f32, 5e-2 under lowp, and 1e-3 for bf16 inputs
+    without lowp (``SPLIT``: the split products' bound, with room for the
+    plain version's own f32 rounding)."""
+    _check_bwd(dtype, lowp, 2, 3, Sq, Sk, hd, causal, q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", BWD_MODES)
+def test_flash_bwd_matches_plain_at_the_train_shape(dtype, lowp):
+    """The train step's attention: B4 H32 S512 hd64, causal."""
+    _check_bwd(dtype, lowp, 4, 32, 512, 512, 64, True, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_flash_bwd_bf16_launch_failure_raises(kernel):
+    """A bf16 call the kernel refuses (b * h past the grid's 65535) raises
+    the launch error: no result from the FFMA kernel or the plain version."""
+    dev = _device()
+    x = torch.zeros(1, 65536, 1, 16, device=dev, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 65536, 1, device=dev)
+    before = dict(fb.launches)
+    with pytest.raises(RuntimeError, match=f"{kernel} failed"):
+        getattr(fb, kernel)(x, x, x, x, lse, lse)
+    assert fb.launches == before
 
 
 @pytest.mark.cuda

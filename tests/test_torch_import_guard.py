@@ -1,9 +1,10 @@
-"""The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
+"""The port, ``chip_smoke.py`` and ``bench_flash_bwd.py`` import neither
+JAX nor the JAX package.
 
 An AST scan of every ``import`` and ``from ... import`` in
-``src/repro_torch/**/*.py`` and ``chip_smoke.py``: a module named ``jax``
-(or under it) or ``repro`` (or under it) fails the test. Only the tests
-import both packages.
+``src/repro_torch/**/*.py``, ``chip_smoke.py`` and ``bench_flash_bwd.py``:
+a module named ``jax`` (or under it) or ``repro`` (or under it) fails the
+test. Only the tests import both packages.
 """
 import ast
 import pathlib
@@ -11,7 +12,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                ROOT / "bench_flash_bwd.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
