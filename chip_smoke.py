@@ -15,7 +15,10 @@ Phases (any failure raises and the script exits non-zero):
 3. Kernels: calls each kernel's wrapper on the card at the shapes of the
    serve and train paths and holds it against its plain PyTorch version
    (``kernels/ref.py``) on the same inputs: 2e-5 in f32, 5e-2 with bf16 dot
-   inputs, 1e-3 for the attention backward's bf16 inputs without lowp.
+   inputs, 1e-3 for the attention kernels' bf16 inputs without lowp (the
+   forward's bf16 o against the plain version's f32 result, beside half a
+   bf16 unit for its own rounding). The forward runs in its three modes:
+   f32 (FFMA), bf16 with lowp and bf16 without it (tensor cores).
    Times the kernel, the plain version and one PyTorch library call for the
    same function (``scaled_dot_product_attention``, its backward through
    ``torch.autograd.grad`` for the backward kernels; used here only as a
@@ -50,9 +53,10 @@ Phases (any failure raises and the script exits non-zero):
    wall-clock latencies. At least one interference downgrade, every
    migration in place, every loss finite, and each step launches the three
    attention kernels 16 x its microbatch count times each (the bf16 rung's
-   backward runs the tensor-core kernels without lowp). Prints the median
-   step ms of each rung and a ``torch.profiler`` breakdown of one more step
-   on the last rung.
+   forward and backward run the tensor-core kernels without lowp). Prints
+   the median step ms of each rung and a ``torch.profiler`` breakdown of
+   one more step on the last rung, with its device-busy ms and the forward
+   and backward kernels' device ms.
 9. Paged serve: llama3.2-1b at full width, f32, 8 slots, max_seq 1024,
    ``kv_layout="paged"`` with 16-position blocks, on the phase-4 requests
    with half of them sharing a 128-token prefix and two of them identical
@@ -198,6 +202,19 @@ def max_err(got, want, tol) -> tuple[float, bool]:
     return float(diff.max()), ok
 
 
+def max_err_bf16_out(got, want, tol) -> tuple[float, bool]:
+    """A bf16 ``got`` against the plain version's f32 ``want``: within
+    ``tol`` beside half a bf16 unit, the kernel's one rounding of its f32
+    result (two f32 values within ``tol`` may round to neighbouring bf16
+    values, so the plain version's own bf16 output is not the yardstick)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    eps = tol["atol"] + tol["rtol"] * want.abs()
+    _, e = torch.frexp(want.abs() + eps)  # |want| + eps in [2^(e-1), 2^e)
+    ok = bool((diff <= eps + torch.ldexp(torch.ones_like(want), e - 9)).all())
+    return float(diff.max()), ok
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -206,7 +223,10 @@ def max_err(got, want, tol) -> tuple[float, bool]:
 def check_flash_fwd(fa, ref):
     """Prefill attention: B=1, H=32, hd=64, causal, at S=512, a prime S near
     it and S=256 (inside the serve run's prompt range); then the train
-    step's B=4, S=512."""
+    step's B=4, S=512. In its three modes: f32 (the FFMA kernel), bf16 with
+    lowp and bf16 without it (the tensor-core kernel, p split into bf16
+    pairs: o within SPLIT_TOL of the plain version's f32 result beside its
+    own rounding to bf16, lse within SPLIT_TOL)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(1)
     checks = []
@@ -215,21 +235,31 @@ def check_flash_fwd(fa, ref):
                               (1, 256, torch.float32, False),
                               (1, 512, torch.bfloat16, True),
                               (1, 509, torch.bfloat16, True),
+                              (1, 512, torch.bfloat16, False),
+                              (1, 509, torch.bfloat16, False),
                               (4, 512, torch.float32, False),   # the train step's
-                              (4, 512, torch.bfloat16, True)]:
+                              (4, 512, torch.bfloat16, True),
+                              (4, 512, torch.bfloat16, False)]:  # the lean rung's
         H, hd = 32, 64
+        split = dtype == torch.bfloat16 and not lowp
         q, k, v = (torch.randn(B, H, S, hd, generator=g, device="cuda").to(dtype)
                    for _ in range(3))
         o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True, lowp=lowp)
-        ro, rl = ref.ref_flash_attention_fwd(q, k, v, causal=True, lowp=lowp)
+        if split:  # the plain version's f32 result, before its cast of o to bf16
+            ro, rl = ref.ref_flash_attention_fwd(q.float(), k.float(), v.float(),
+                                                 causal=True)
+        else:
+            ro, rl = ref.ref_flash_attention_fwd(q, k, v, causal=True, lowp=lowp)
         torch.cuda.synchronize()
-        tol = BF16_TOL if lowp else F32_TOL
-        err_o, ok_o = max_err(o, ro, tol)
+        tol = BF16_TOL if lowp else SPLIT_TOL if split else F32_TOL
+        err_o, ok_o = (max_err_bf16_out if split else max_err)(o, ro, tol)
         err_l, ok_l = max_err(lse, rl, tol)
         elt = q.element_size()
         nbytes = 4 * B * H * S * hd * elt + B * H * S * 4  # q,k,v read; o, lse written
-        flops = 4 * hd * B * H * S * (S + 1) // 2           # QK^T and PV, causal pairs
-        peak = BF16_FLOPS if lowp else F32_FLOPS
+        # QK^T and PV over the causal pairs; the split issues PV twice; bf16
+        # inputs run on the tensor cores
+        flops = (6 if split else 4) * hd * B * H * S * (S + 1) // 2
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
         c = {
             "shape": [B, H, S, hd], "dtype": str(dtype).replace("torch.", ""),
@@ -244,6 +274,7 @@ def check_flash_fwd(fa, ref):
             "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
             else "operations",
+            "o_tol_plus_half_bf16_unit": split,
         }
         print(f"[kernels] flash_fwd {c['shape']} {c['dtype']} lowp={lowp}: "
               f"max_abs_err={c['max_abs_err']:.3g} (tol {c['tol']}) "
@@ -1104,6 +1135,7 @@ def adaptive_phase(fa, cfg, batch_fn, device="cuda"):
                          optimizer=adam(), adaptive=True, device=device,
                          trace=InterferenceTrace.parse("2:6:3.0"))
     snaps.append(fa.all_launches())
+    launches = {k: snaps[-1][k] - snaps[0][k] for k in snaps[-1]}
     migrations = [(m.step, m.from_rung, m.to_rung, m.reason, m.kind)
                   for m in res.timeline.migrations]
     rungs_by_step = [s.rung for s in res.timeline.steps]
@@ -1129,19 +1161,22 @@ def adaptive_phase(fa, cfg, batch_fn, device="cuda"):
     adaptive_out = {"migrations": migrations, "rungs": rungs_by_step,
                     "losses": res.losses, "step_ms": ms,
                     "median_step_ms_by_rung": by_rung,
-                    "reached_bf16": "lean" in rungs_by_step}
+                    "reached_bf16": "lean" in rungs_by_step, "launches": launches}
     last = next(r for r in ladder if r.name == rungs_by_step[-1])
     host_ms, dev_ms, top = profile_train_step(
         last.cached_step(cfg, adam(), lr=TRAIN["lr"], device=device), res.state,
         batch_fn(adaptive_steps))
     bwd_ms = sum(t for t, _, k in top if "flash_bwd" in k)
+    fwd_ms = sum(t for t, _, k in top if "flash_fwd" in k)
     print(f"[profile] one step on {last.name}: host {host_ms:.1f} ms, device busy "
-          f"{dev_ms:.1f} ms; the backward kernels {bwd_ms:.2f} ms in "
+          f"{dev_ms:.1f} ms; the forward kernel {fwd_ms:.2f} ms in "
+          f"{sum(n for _, n, k in top if 'flash_fwd' in k)} launches; the backward "
+          f"kernels {bwd_ms:.2f} ms in "
           f"{sum(n for _, n, k in top if 'flash_bwd' in k)} launches", flush=True)
     for t, n, k in top[:8]:
         print(f"[profile]   {t:8.3f} ms {n:5d} calls  {k[:90]}")
     adaptive_out["profile"] = {"rung": last.name, "host_ms": host_ms, "device_ms": dev_ms,
-                               "backward_kernels_ms": bwd_ms,
+                               "forward_kernel_ms": fwd_ms, "backward_kernels_ms": bwd_ms,
                                "top": [[t, n, k[:120]] for t, n, k in top[:8]]}
     del res
     free_cuda()
@@ -1467,20 +1502,24 @@ def main() -> int:
             "checks": checks,
         }
 
+    adaptive_launches = train_out["adaptive"]["launches"]
     kernels = [
         entry("flash_fwd", "src/repro_torch/csrc/flash_fwd.cu",
               "src/repro/kernels/flash_attention.py:111 (_fwd_kernel, "
               "pallas_call at :173)", fwd,
               {"serve": serve_launches["flash_fwd"],
-               "train": train_launches["flash_fwd"]}),
+               "train": train_launches["flash_fwd"],
+               "adaptive": adaptive_launches["flash_fwd"]}),
         entry("flash_bwd_dq", "src/repro_torch/csrc/flash_bwd.cu",
               "src/repro/kernels/flash_attention.py:205 (_dq_kernel, "
               "pallas_call at :309)", bwd_dq,
-              {"train": train_launches["flash_bwd_dq"]}),
+              {"train": train_launches["flash_bwd_dq"],
+               "adaptive": adaptive_launches["flash_bwd_dq"]}),
         entry("flash_bwd_dkv", "src/repro_torch/csrc/flash_bwd.cu",
               "src/repro/kernels/flash_attention.py:251 (_dkv_kernel, "
               "pallas_call at :338)", bwd_dkv,
-              {"train": train_launches["flash_bwd_dkv"]}),
+              {"train": train_launches["flash_bwd_dkv"],
+               "adaptive": adaptive_launches["flash_bwd_dkv"]}),
         entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
               "src/repro/kernels/flash_attention.py:438 (_decode_kernel, "
               "pallas_call at :536)", dec,
@@ -1511,10 +1550,14 @@ def main() -> int:
               "pallas_call at :77)", rms_bwd,
               {"rmsnorm": rms_launches["rmsnorm_bwd"]}),
     ]
-    # the backward's three modes at the train shape, side by side
+    # each attention kernel's three modes side by side: the forward at the
+    # serve path's B1 S512, the backward at the train shape
+    def by_mode(checks, keep):
+        return {f"{c['dtype']}{'+lowp' if c['lowp'] else ''}": c["ms"]
+                for c in checks if keep(c)}
+    kernels[0]["ms_by_mode"] = by_mode(fwd, lambda c: c["shape"][:3] == [1, 32, 512])
     for e in kernels[1:3]:
-        e["ms_by_mode"] = {f"{c['dtype']}{'+lowp' if c['lowp'] else ''}": c["ms"]
-                           for c in e["checks"] if c["shape"][0] == TRAIN["batch"]}
+        e["ms_by_mode"] = by_mode(e["checks"], lambda c: c["shape"][0] == TRAIN["batch"])
     # the paths that ran after phase 4 launched these too
     for e in kernels:
         for p in ("spec_contig", "serve_paged", "swap", "spec_paged"):

@@ -2,10 +2,13 @@
 
 The JAX package resolves ``interpret`` here: Mosaic lowers only on a TPU,
 everywhere else its kernels run in Pallas interpret mode. The port's
-counterpart of "can run the kernel" is a CUDA device: on one, every kernel
-wrapper launches its CUDA kernel; on the CPU it runs the kernel's plain
-PyTorch version (``kernels/ref.py``). Nothing here falls back from one to
-the other on its own.
+counterpart of "can run the kernel" is a CUDA device of compute capability
+9.0 (``can_run_kernel``), the one the ``sm_90a`` libraries run on: there the
+``auto`` policies pick the kernels, elsewhere the plain ``chunked`` and
+``naive`` paths. A kernel wrapper launches its CUDA kernel for a CUDA
+tensor (and raises where the launch fails, on another GPU too); on the CPU
+it runs the kernel's plain PyTorch version (``kernels/ref.py``). Nothing
+here falls back from one to the other on its own.
 
 Kernels live in ``src/repro_torch/csrc/*.cu``. Each is compiled by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface under
@@ -35,6 +38,9 @@ LIBRARIES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
              "flash_decode_spec", "depthwise_conv", "rmsnorm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}  # loaded libraries, one per source
+# cudaErrorInvalidDeviceFunction, cudaErrorNoKernelImageForDevice: what a
+# launch of sm_90a code returns on a GPU of another compute capability
+_NO_IMAGE = (98, 209)
 
 
 def resolve_device(device) -> torch.device:
@@ -82,14 +88,26 @@ def stream_args(t: torch.Tensor):
     return index, torch.cuda.current_stream(t.device).cuda_stream
 
 
+# the one compute capability the libraries are built for (NVCC_FLAGS)
+KERNEL_CAPABILITY = (9, 0)
+
+
 def can_run_kernel(device) -> bool:
-    return torch.device(device).type == "cuda"
+    """True for an available CUDA device of compute capability 9.0: the
+    libraries hold ``sm_90a`` code only, which no other GPU runs. An
+    explicit ``attn_impl="pallas"`` elsewhere still launches, and raises."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return False
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return tuple(torch.cuda.get_device_capability(index)) == KERNEL_CAPABILITY
 
 
 def auto_attn_impl(seq_len: int, *, device="cuda") -> str:
     """Attention policy for ``--attn-impl auto``: ``naive`` for short
     sequences (the score matrix is small), the flash kernel for long ones on
-    a CUDA device, and the plain online-softmax ``chunked`` path elsewhere."""
+    an sm_90 device, and the plain online-softmax ``chunked`` path
+    elsewhere, as the reference falls back where Pallas does not compile."""
     if seq_len <= 512:
         return "naive"
     return "pallas" if can_run_kernel(device) else "chunked"
@@ -97,7 +115,7 @@ def auto_attn_impl(seq_len: int, *, device="cuda") -> str:
 
 def auto_decode_impl(cache_len: int, *, device="cuda") -> str:
     """Decode-attention policy for ``--attn-impl auto``: ``naive`` for short
-    caches, the flash-decode kernel for long caches on a CUDA device."""
+    caches, the flash-decode kernel for long caches on an sm_90 device."""
     if cache_len < 512:
         return "naive"
     return "pallas" if can_run_kernel(device) else "naive"
@@ -165,5 +183,7 @@ def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
     ``cudaGetLastError()`` right after the launch, or
     ``cudaErrorInvalidValue`` for an argument it refused."""
     if rc != 0:
+        hint = ("; the kernel libraries hold sm_90a code only, for a GPU of "
+                "compute capability 9.0" if rc in _NO_IMAGE else "")
         raise RuntimeError(f"{what} failed: error {rc} "
-                           f"({lib.kernel_error_string(rc).decode()})")
+                           f"({lib.kernel_error_string(rc).decode()}){hint}")

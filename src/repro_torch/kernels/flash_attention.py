@@ -21,6 +21,12 @@ caller can show that a run really went through the kernels; the backward
 kernels count in ``flash_backward.launches``, and ``all_launches`` merges the
 two. Plain-version calls on the CPU do not count.
 
+On the card the dtype and ``lowp`` choose ``flash_fwd``'s numeric mode, as
+the reference's ``cdt`` does: bf16 inputs run the tensor-core kernel (TMA,
+``wgmma``), with ``lowp`` on bf16(q * scale) and bf16 p, without it with p
+kept f32 as a split pair of bf16 products; f32 inputs, with or without
+``lowp``, run the f32 FFMA kernel. None of them falls back to another.
+
 ``flash_attention_mha`` is differentiable: ``_FlashMHA`` is the
 counterpart of the JAX package's ``_flash_mha`` custom_vjp. Its forward runs
 ``flash_fwd`` and saves q, k, v, o and lse; its backward is
@@ -129,6 +135,15 @@ def _check_no_grad(what: str, *tensors) -> None:
             f"either (flash_attention_mha is the differentiable attention)")
 
 
+def _check_aligned(name: str, *tensors) -> None:
+    """The kernels load rows 16 bytes at a time (TMA: 16-byte aligned
+    bases)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} reads rows 16 bytes at a time: its "
+                             f"inputs must be 16-byte aligned")
+
+
 def _check_dtype(*tensors) -> None:
     dt = tensors[0].dtype
     if dt not in _DTYPES or any(t.dtype != dt for t in tensors):
@@ -168,6 +183,8 @@ def _fwd_lse(q, k, v, causal: bool, q_offset: int, lowp: bool):
                          f"got {hd}")
     Sk = k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's tensor maps
+        _check_aligned("flash_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:

@@ -27,8 +27,8 @@ import torch
 
 from repro_torch.kernels.backend import (check_device, check_launch,
                                          load_library, stream_args)
-from repro_torch.kernels.flash_attention import (FWD_HEAD_DIMS, _check_dtype,
-                                                 _check_mha)
+from repro_torch.kernels.flash_attention import (FWD_HEAD_DIMS, _check_aligned,
+                                                 _check_dtype, _check_mha)
 from repro_torch.kernels.ref import (ref_flash_attention_bwd, ref_flash_bwd_dkv,
                                     ref_flash_bwd_dq)
 
@@ -48,14 +48,6 @@ def _bwd_lib():
                                                         _I, _P]
     lib.flash_bwd_dkv.restype = _I
     return lib
-
-
-def _check_aligned(name: str, *tensors) -> None:
-    """The kernels load rows 16 bytes at a time."""
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} reads rows 16 bytes at a time: its "
-                             f"inputs must be 16-byte aligned")
 
 
 def _bwd_args(q, k, v, do, lse, delta, name: str, lowp: bool):

@@ -1,14 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Marked ``cuda``: each test skips itself where ``torch.cuda.is_available()``
-is False. This file imports neither JAX nor the JAX package, so it also runs
-on a machine that has only PyTorch:
+Marked ``cuda``: each test skips itself unless a CUDA device of compute
+capability 9.0 is there (the libraries hold sm_90a code only). This file
+imports neither JAX nor the JAX package, so it also runs on a machine that
+has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of ``tests/test_kernels.py``: 2e-5 at f32, 5e-2 with
-bf16 dot inputs; the attention backward with bf16 inputs and f32 dot
-inputs (no ``lowp``) is held to 1e-3 (``SPLIT``).
+bf16 dot inputs; the attention kernels with bf16 inputs and f32 dot inputs
+(no ``lowp``) are held to 1e-3 (``SPLIT``), and the forward's bf16 output
+in that mode to 1e-3 of the plain version's f32 output beside its own
+rounding to bf16 (half a bf16 unit).
 """
 import pytest
 import torch
@@ -20,34 +23,151 @@ from repro_torch.kernels import ref
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=5e-2, atol=5e-2)
 CASES = [(torch.float32, False), (torch.bfloat16, True)]
+# bf16 without lowp: the split leaves each output within 2^-16 sum |x||y| of
+# the f32 product (csrc/flash_bwd.cu, csrc/flash_fwd.cu), about 1e-5
+# relative; the plain version's f32 sums and exp differ by less, so 1e-3
+# holds with room
+SPLIT = dict(rtol=1e-3, atol=1e-3)
+# the forward's three modes: f32 (FFMA kernel), bf16 with lowp and bf16
+# without it (tensor-core kernel, p split into bf16 pairs)
+FWD_MODES = CASES + [(torch.bfloat16, False)]
+FWD_CASES = [(64, 64, True, 0), (67, 64, True, 0), (37, 16, False, 0), (29, 32, True, 40),
+             (70, 128, True, 0)]  # S, hd, causal, q_offset
 
 
 def _device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are built with nvcc for sm_90a")
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("needs a GPU of compute capability 9.0: the kernels are sm_90a code")
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,lowp", CASES)
-@pytest.mark.parametrize("S,hd,causal,q_offset", [(64, 64, True, 0), (67, 64, True, 0),
-                                                  (37, 16, False, 0), (29, 32, True, 40),
-                                                  (70, 128, True, 0)])
-def test_flash_fwd_matches_plain(dtype, lowp, S, hd, causal, q_offset):
+def _assert_bf16_out_close(got, want, tol):
+    """``got`` (bf16) within ``tol`` of ``want`` (f32) beside half a bf16 unit:
+    the kernel rounds its f32 result to bf16 once, so two f32 values within
+    ``tol`` may round to neighbouring bf16 values."""
+    got, want = got.float(), want.float()
+    eps = tol["atol"] + tol["rtol"] * want.abs()
+    _, e = torch.frexp(want.abs() + eps)  # |want| + eps in [2^(e-1), 2^e)
+    half_unit = torch.ldexp(torch.ones_like(want), e - 9)
+    err = (got - want).abs()
+    bad = err > eps + half_unit
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {err.numel()} elements past the bound; max err "
+        f"{float(err.max()):.3g}")
+
+
+def _check_fwd(dtype, lowp, B, H, Sq, hd, causal, q_offset, seed):
+    """flash_fwd against the plain version on one seeded input, launched once."""
     dev = _device()
-    g = torch.Generator(device=dev).manual_seed(S)
-    q = torch.randn(2, 3, S, hd, generator=g, device=dev).to(dtype)
-    k, v = (torch.randn(2, 3, S + q_offset, hd, generator=g, device=dev).to(dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, Sq, hd, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, H, Sq + q_offset, hd, generator=g, device=dev).to(dtype)
             for _ in range(2))
     before = fa.launches["flash_fwd"]
     o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal, q_offset=q_offset,
                                         lowp=lowp)
+    assert fa.launches["flash_fwd"] == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.bfloat16 and not lowp:
+        # the plain version's f32 result, before its cast of o to bf16
+        ro, rl = ref.ref_flash_attention_fwd(q.float(), k.float(), v.float(),
+                                             causal=causal, q_offset=q_offset)
+        _assert_bf16_out_close(o, ro, SPLIT)
+        torch.testing.assert_close(lse, rl, **SPLIT)
+        return
     ro, rl = ref.ref_flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,
                                          lowp=lowp)
     tol = BF16 if lowp else F32
     torch.testing.assert_close(o.float(), ro.float(), **tol)
     torch.testing.assert_close(lse, rl, **tol)
-    assert fa.launches["flash_fwd"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", FWD_MODES)
+@pytest.mark.parametrize("S,hd,causal,q_offset", FWD_CASES)
+def test_flash_fwd_matches_plain(dtype, lowp, S, hd, causal, q_offset):
+    _check_fwd(dtype, lowp, 2, 3, S, hd, causal, q_offset, seed=S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", FWD_MODES)
+def test_flash_fwd_matches_plain_at_the_train_shape(dtype, lowp):
+    """The train step's attention: B4 H32 S512 hd64, causal."""
+    _check_fwd(dtype, lowp, 4, 32, 512, 64, True, 0, seed=512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", FWD_MODES)
+def test_flash_fwd_past_65535_heads(dtype, lowp):
+    """B*H = 65536: the tensor-core kernel's 1-D grid runs it; the FFMA
+    kernel (b*h on grid.y) refuses it at launch and raises, with no result
+    from another kernel."""
+    if dtype == torch.bfloat16:
+        _check_fwd(dtype, lowp, 1, 65536, 5, 16, True, 0, seed=65536)
+        return
+    dev = _device()
+    x = torch.zeros(1, 65536, 5, 16, device=dev, dtype=dtype)
+    before = dict(fa.launches)
+    with pytest.raises(RuntimeError, match="flash_fwd failed"):
+        fa.flash_attention_fwd_lse(x, x, x, lowp=lowp)
+    assert fa.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [True, False])
+def test_flash_fwd_bf16_launch_failure_raises(lowp, monkeypatch):
+    """A bf16 call whose tensor map cannot be encoded (a base 2 bytes off the
+    16-byte alignment TMA needs, past the wrapper's own check) raises the
+    launch error: the FFMA kernel, which would take it, does not run."""
+    dev = _device()
+    x = torch.zeros(2 * 8 * 16 + 1, device=dev, dtype=torch.bfloat16)[1:].view(1, 2, 8, 16)
+    monkeypatch.setattr(fa, "_check_aligned", lambda *a: None)
+    before = dict(fa.launches)
+    with pytest.raises(RuntimeError, match="flash_fwd failed"):
+        fa.flash_attention_fwd_lse(x, x, x, lowp=lowp)
+    assert fa.launches == before
+
+
+@pytest.mark.cuda
+def test_flash_fwd_refuses_a_misaligned_bf16_input():
+    dev = _device()
+    x = torch.zeros(2 * 8 * 16 + 1, device=dev, dtype=torch.bfloat16)[1:].view(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_fwd_lse(x, x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [True, False])
+def test_flash_attention_mha_bf16_matches_the_plain_versions(lowp):
+    """autograd through ``_FlashMHA`` with bf16 inputs on the card (the
+    tensor-core forward and backward) against the same function on CPU
+    copies, where it runs the plain versions with the same rounding points.
+    bf16 outputs and gradients without lowp: 1e-2, one bf16 unit (up to
+    2^-7 relative) on each side of the final casts, beside SPLIT."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(2, 3, 70, 64, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    w = torch.randn(2, 3, 70, 64, generator=g, device=dev).to(torch.bfloat16).float()
+
+    def run(device):
+        leaves = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention_mha(*leaves, causal=True, lowp=lowp)
+        grads = torch.autograd.grad((out.float() * w.to(device)).sum(), leaves)
+        return [t.cpu() for t in (out, *grads)]
+
+    before = fa.all_launches()
+    got = run(dev)
+    after = fa.all_launches()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    want = run("cpu")
+    tol = BF16 if lowp else dict(rtol=1e-2, atol=1e-2)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), **tol)
 
 
 @pytest.mark.cuda
@@ -218,12 +338,8 @@ BWD_CASES = [  # Sq, Sk, hd, causal, q_offset
 
 # the backward's three numeric modes: f32 (FFMA kernels), lowp (bf16 tensor
 # cores; an f32 call is rounded to bf16 first) and bf16 without lowp (tensor
-# cores with p and ds split into bf16 pairs)
+# cores with p and ds split into bf16 pairs, held to SPLIT)
 BWD_MODES = CASES + [(torch.float32, True), (torch.bfloat16, False)]
-# bf16 without lowp: the split leaves each output within 2^-16 sum |x||y| of
-# the f32 product (csrc/flash_bwd.cu), about 1e-5 relative; the plain
-# version's f32 sums and exp differ by less, so 1e-3 holds with room
-SPLIT = dict(rtol=1e-3, atol=1e-3)
 
 
 def _bwd_tol(dtype, lowp):

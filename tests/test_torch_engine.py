@@ -172,10 +172,18 @@ def test_train_cli_rejects_both_traces(tmp_path):
                          "1:2:3", "--thermal-trace", "0.5:0.2:3"))
 
 
-def test_train_cli_resolves_auto_through_the_device(tmp_path, capsys):
+@pytest.mark.parametrize("capability,impl", [((9, 0), "pallas"), ((8, 0), "chunked")])
+def test_train_cli_resolves_auto_through_the_device(tmp_path, capsys, monkeypatch,
+                                                     capability, impl):
+    """``auto`` takes the kernels only on an sm_90 device (torch.cuda's
+    answers patched for the check), and the CLI resolves it on the CPU."""
     from repro_torch.kernels.backend import auto_attn_impl
     assert auto_attn_impl(1024, device="cpu") == "chunked"
-    assert auto_attn_impl(1024, device="cuda") == "pallas"
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "current_device", lambda: 0)
+        m.setattr(torch.cuda, "get_device_capability", lambda device=None: capability)
+        assert auto_attn_impl(1024, device="cuda") == impl
     losses = ttrain.main(_cli(tmp_path, "--steps", "2")[:5] + [
         "--seq", "32", "--attn-impl", "auto", "--steps", "2", "--adaptive",
         "--interference-trace", "0:2:3.0"])

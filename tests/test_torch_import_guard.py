@@ -1,8 +1,9 @@
-"""The port, ``chip_smoke.py`` and ``bench_flash_bwd.py`` import neither
-JAX nor the JAX package.
+"""The port, ``chip_smoke.py`` and the ``bench_flash_*.py`` scripts import
+neither JAX nor the JAX package.
 
 An AST scan of every ``import`` and ``from ... import`` in
-``src/repro_torch/**/*.py``, ``chip_smoke.py`` and ``bench_flash_bwd.py``:
+``src/repro_torch/**/*.py``, ``chip_smoke.py``, ``bench_flash_bwd.py`` and
+``bench_flash_fwd.py``:
 a module named ``jax`` (or under it) or ``repro`` (or under it) fails the
 test. Only the tests import both packages.
 """
@@ -12,8 +13,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                ROOT / "bench_flash_bwd.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "bench_flash_bwd.py", ROOT / "bench_flash_fwd.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 

@@ -147,14 +147,34 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
                             "flash_decode_spec_paged": 0}
 
 
-def test_device_policy():
-    assert backend.auto_attn_impl(128, device="cpu") == "naive"
-    assert backend.auto_attn_impl(2048, device="cpu") == "chunked"
-    assert backend.auto_attn_impl(2048, device="cuda") == "pallas"
-    assert backend.auto_decode_impl(256, device="cuda") == "naive"
-    assert backend.auto_decode_impl(1024, device="cpu") == "naive"
-    assert backend.auto_decode_impl(1024, device="cuda") == "pallas"
+def _fake_cuda(monkeypatch, capability):
+    """A CUDA device of ``capability`` as torch.cuda reports it (``None``: no
+    device at all)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: capability is not None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: capability)
+
+
+@pytest.mark.parametrize("capability,kernel", [((9, 0), True), ((8, 0), False),
+                                               ((8, 9), False), ((10, 0), False),
+                                               (None, False)])
+def test_device_policy(monkeypatch, capability, kernel):
+    """The kernels are sm_90a code: ``auto`` picks them only on a device of
+    compute capability 9.0, and falls back to ``chunked`` / ``naive``
+    elsewhere, as the reference does where Pallas does not compile."""
     assert backend.resolve_device("cpu").type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             backend.resolve_device("cuda")
+    _fake_cuda(monkeypatch, capability)
+    assert backend.can_run_kernel("cuda") is kernel
+    assert backend.can_run_kernel("cuda:0") is kernel
+    assert backend.can_run_kernel("cpu") is False
+    assert backend.auto_attn_impl(128, device="cpu") == "naive"
+    assert backend.auto_attn_impl(128, device="cuda") == "naive"
+    assert backend.auto_attn_impl(2048, device="cpu") == "chunked"
+    assert backend.auto_attn_impl(2048, device="cuda") == ("pallas" if kernel else "chunked")
+    assert backend.auto_decode_impl(256, device="cuda") == "naive"
+    assert backend.auto_decode_impl(1024, device="cpu") == "naive"
+    assert backend.auto_decode_impl(1024, device="cuda") == ("pallas" if kernel else "naive")
