@@ -81,7 +81,10 @@ Phases (any failure raises and the script exits non-zero):
    ``impl="pallas"`` (the depthwise kernel on every stride-1 depthwise
    layer) and ``"naive"``: logits within 1e-4 of the largest, top-1
    identical but where the plain top-2 margin is below LOGIT_TOL, and 0,
-   13 and 13 depthwise launches per forward. Prints forward ms.
+   13 and 13 depthwise launches per forward, on the layer shapes of
+   ``DW_LAYERS``. Prints forward ms, and the device ms of one forward's
+   depthwise launches (``torch.profiler``) beside the same layers run one
+   call each on ``F.conv2d(groups=C)`` and on the kernel (CUDA events).
 13. CNN training: each model through ``TrainSession`` on one static rung
    (``attn_impl="naive"``: the depthwise kernel has no gradient, as in the
    reference), adam lr 1e-3, 8 steps on one fixed batch of 128 (the first of
@@ -104,11 +107,12 @@ their plain versions (B8 K8 G4 hd64, 64 blocks of 16, a shuffled table with
 out-of-range entries, ragged lengths including 0 and past the capacity,
 speculative windows of S = 2 and 5); their library yardsticks are one SDPA
 call with a boolean mask (speculative, contiguous) and a gather followed by
-SDPA (the paged two, two calls). It holds the depthwise kernel at
-MobileNetV2's largest stride-1 layer, (128, 32, 32, 192) 3x3, in f32 and
-bf16, at ShuffleNetV2's widths 58, 116 and 232 and at a 5x5 case, against
-one ``F.conv2d(groups=C)`` as the library yardstick, and checks that a
-backward through it raises; and the RMSNorm forward and backward kernels at
+SDPA (the paged two, two calls). It holds the depthwise kernel at every
+stride-1 depthwise layer shape of MobileNetV2 and ShuffleNetV2 at batch 128
+(``DW_LAYERS``; the largest, (128, 32, 32, 192) 3x3, first), in f32 and
+bf16, and at a 5x5 case, against one ``F.conv2d(groups=C)`` as the library
+yardstick, and checks that a backward through it raises; and the RMSNorm
+forward and backward kernels at
 4096 x 2048 (f32, bf16), 512 x 512 and 4096 x 96 against ``F.rms_norm``
 and its autograd backward.
 
@@ -564,6 +568,11 @@ def check_flash_decode_spec(fa, ref, gather, paged: bool):
 
 
 DW_MAIN = (128, 32, 32, 192)  # MobileNetV2's largest stride-1 depthwise input, batch 128
+# every stride-1 depthwise layer of the two depthwise CNNs (models/cnn.py with
+# configs/cnn_paper.py), all 3x3: (H, W, C) and its launches in one forward
+DW_LAYERS = {"mobilenet-v2": [((32, 32, 192), 1), ((16, 16, 144), 1), ((8, 8, 192), 2),
+                              ((4, 4, 384), 4), ((4, 4, 576), 2), ((2, 2, 960), 3)],
+             "shufflenet-v2": [((16, 16, 58), 3), ((8, 8, 116), 7), ((4, 4, 232), 3)]}
 
 
 def depthwise_taps(H, W, kh, kw) -> int:
@@ -574,19 +583,23 @@ def depthwise_taps(H, W, kh, kw) -> int:
 
 
 def check_depthwise(dw, ref):
-    """Depthwise conv at MobileNetV2's largest stride-1 layer, (128, 32, 32,
-    192) 3x3, in f32 and bf16, then ShuffleNetV2's basic-unit widths 58, 116
-    and 232 at their spatial sizes, and a 5x5 case. The library yardstick is
-    one ``F.conv2d(groups=C)`` on the channels-last view (cuDNN, TF32 off);
-    the port never calls it. A backward through the op must raise."""
+    """Depthwise conv at every stride-1 layer shape of MobileNetV2 and
+    ShuffleNetV2 at batch 128, 3x3, in f32 and bf16, the largest,
+    (128, 32, 32, 192), first; then a 5x5 case. The library yardstick is one
+    ``F.conv2d(groups=C)`` on the channels-last view (cuDNN, TF32 off); the
+    port never calls it. A backward through the op must raise."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(DW_MAIN, 3, torch.float32, "mobilenet-v2", 1),
+             (DW_MAIN, 3, torch.bfloat16, "mobilenet-v2", 1)]
+    for model, layers in DW_LAYERS.items():
+        for hwc, n in layers:
+            for dtype in (torch.float32, torch.bfloat16):
+                if (128, *hwc) != DW_MAIN:
+                    cases.append(((128, *hwc), 3, dtype, model, n))
+    cases.append(((128, 32, 32, 96), 5, torch.float32, None, 0))
     checks = []
-    for shape, k, dtype in [(DW_MAIN, 3, torch.float32), (DW_MAIN, 3, torch.bfloat16),
-                            ((128, 16, 16, 58), 3, torch.float32),
-                            ((128, 8, 8, 116), 3, torch.float32),
-                            ((128, 4, 4, 232), 3, torch.float32),
-                            ((128, 32, 32, 96), 5, torch.float32)]:
+    for shape, k, dtype, model, per_forward in cases:
         B, H, W, C = shape
         x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
         w = torch.randn(k, k, C, generator=g, device="cuda").to(dtype)
@@ -600,7 +613,8 @@ def check_depthwise(dw, ref):
         checks.append(kernel_check(
             f"depthwise_conv {list(shape)} {k}x{k}", out, want,
             BF16_TOL if lowp else F32_TOL, shape=list(shape), k=k,
-            dtype=str(dtype).replace("torch.", ""),
+            dtype=str(dtype).replace("torch.", ""), model=model,
+            launches_per_forward=per_forward,
             ms=time_ms(lambda: dw.depthwise_conv(x, w)),
             plain_ms=time_ms(lambda: ref.ref_depthwise_conv(x, w)),
             library_ms=time_ms(lambda: F.conv2d(xc, wc, padding=k // 2, groups=C)),
@@ -1205,20 +1219,75 @@ def cuda_ms(fn, iters: int = 5) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def cnn_phases(dw, build_model, get_config, device="cuda"):
-    """Phases 12-14. Returns (the cnn JSON object, each forward path's
-    depthwise launch counts). ``device`` is for rehearsing the control flow
-    on the CPU."""
-    from repro_torch.engine.events import InterferenceTrace
-    from repro_torch.engine.rungs import Rung, default_rung_ladder
-    from repro_torch.engine.session import TrainSession
+def device_kernels(fn):
+    """[(device ms, launches, kernel name)] of the kernels ``fn`` runs, from
+    ``torch.profiler`` over one call (after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def depthwise_in_forward(dw, forward):
+    """The depthwise kernel's share of one forward: the device ms of its
+    launches inside the forward (``torch.profiler``), beside the same layers,
+    recorded from that forward, run one call each on ``F.conv2d(groups=C)``
+    (cuDNN; the library yardstick, never on the port's path) and on the
+    kernel alone, each set timed with CUDA events (``time_ms``, L2 flushed
+    before the set)."""
+    import torch.nn.functional as F
+    layers, plain = [], dw._forward
+
+    def record(x, w):
+        layers.append((tuple(x.shape), tuple(w.shape)))
+        return plain(x, w)
+
+    dw._forward = record
+    try:
+        forward()
+    finally:
+        dw._forward = plain
+    in_fwd = device_kernels(forward)
+    dw_ms = sum(ms for ms, n, name in in_fwd if "dw_conv" in name)
+    dw_n = sum(n for ms, n, name in in_fwd if "dw_conv" in name)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    ins = [(torch.randn(xs, generator=g, device="cuda"), torch.randn(ws, generator=g,
+                                                                      device="cuda"))
+           for xs, ws in layers]
+    convs = [(x.permute(0, 3, 1, 2), w.permute(2, 0, 1)[:, None].contiguous(),
+              (w.shape[0] // 2, w.shape[1] // 2)) for x, w in ins]
+
+    def library():
+        for x, w, pad in convs:
+            F.conv2d(x, w, padding=pad, groups=x.shape[1])
+
+    def kernel():
+        for x, w in ins:
+            dw.depthwise_conv(x, w)
+
+    out = {"layers": [list(xs) for xs, _ in layers],
+           "launches_profiled": dw_n, "kernel_device_ms": dw_ms,
+           "forward_device_ms": sum(ms for ms, _, _ in in_fwd),
+           "conv2d_ms": time_ms(library), "kernel_alone_ms": time_ms(kernel)}
+    check(dw_ms > 0 and out["conv2d_ms"] > 0 and out["kernel_alone_ms"] > 0,
+          f"depthwise timings of the forward not measured: {out}")
+    return out
+
+
+def cnn_forward_phase(dw, build_model, get_config, device="cuda"):
+    """Phase 12: each CNN forward at full width, batch 128, through the
+    depthwise kernel and through the plain path. Returns (the JSON object
+    per arch, each forward's depthwise launch counts)."""
     from repro_torch.launch.train import make_batch_fn
-    from repro_torch.optim.optimizers import adam
     from repro_torch.tree import tree_leaves
 
     B = CNN["batch"]
     out, launches = {}, {}
-    # -- phase 12: forward at full width, the kernel against the plain path ----
     for arch, want_launches in CNN_ARCHS.items():
         cfg = get_config(arch)
         batch_fn = make_batch_fn(cfg, B, 0, seed=CNN["seed"])
@@ -1245,6 +1314,15 @@ def cnn_phases(dw, build_model, get_config, device="cuda"):
                   f"not {want_launches}")
             fwd_ms = {impl: cuda_ms(lambda m=m: m.forward(params, {"images": images}))
                       for impl, m in (("pallas", model), ("naive", naive))}
+            dwf = None
+            if want_launches:
+                dwf = depthwise_in_forward(
+                    dw, lambda: model.forward(params, {"images": images}))
+                want_layers = [[B, *hwc] for hwc, k in DW_LAYERS[arch] for _ in range(k)]
+                check(sorted(dwf["layers"]) == sorted(want_layers)
+                      and dwf["launches_profiled"] == want_launches,
+                      f"{arch}: the forward's depthwise layers {dwf['layers']} "
+                      f"({dwf['launches_profiled']} profiled launches) are not DW_LAYERS'")
         launches[f"cnn_forward_{arch}"] = n
         n_params = sum(p.numel() for p in tree_leaves(params))
         print(f"[cnn] {arch}: {n_params / 1e6:.3f}M params, batch {B} x "
@@ -1253,12 +1331,34 @@ def cnn_phases(dw, build_model, get_config, device="cuda"):
               f"{int(differ.sum())} top-1 differences; {n} depthwise launches per "
               f"forward; forward {fwd_ms['pallas']:.2f} ms pallas, "
               f"{fwd_ms['naive']:.2f} ms naive", flush=True)
+        if dwf:
+            print(f"[cnn] {arch}: the forward's {dwf['launches_profiled']} depthwise "
+                  f"launches {dwf['kernel_device_ms']:.4f} ms of {dwf['forward_device_ms']:.3f} "
+                  f"ms device time; the same layers, one call each, on "
+                  f"F.conv2d(groups=C) {dwf['conv2d_ms']:.4f} ms, on the kernel "
+                  f"{dwf['kernel_alone_ms']:.4f} ms", flush=True)
         out[arch] = {"params": n_params, "logit_rel_diff": rel,
                      "top1_differences": int(differ.sum()),
                      "depthwise_launches_per_forward": n,
-                     "forward_ms": fwd_ms}
+                     "forward_ms": fwd_ms, "depthwise_in_forward": dwf}
         del model, naive, params, logits, want
         free_cuda()
+    return out, launches
+
+
+def cnn_phases(dw, build_model, get_config, device="cuda"):
+    """Phases 12-14. Returns (the cnn JSON object, each forward path's
+    depthwise launch counts). ``device`` is for rehearsing the control flow
+    on the CPU."""
+    from repro_torch.engine.events import InterferenceTrace
+    from repro_torch.engine.rungs import Rung, default_rung_ladder
+    from repro_torch.engine.session import TrainSession
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.optimizers import adam
+
+    B = CNN["batch"]
+    # -- phase 12: forward at full width, the kernel against the plain path ----
+    out, launches = cnn_forward_phase(dw, build_model, get_config, device)
 
     # -- phase 13: train each model through TrainSession (plain path) --------
     # on one fixed batch: only label mod 7 can be learnt from

@@ -123,6 +123,7 @@ constexpr int kBQ = 64;            // query rows per tile
 constexpr int kBK = 64;            // keys per tile
 constexpr int kThreads = 256;      // a 16 x 16 grid of (ty, tx)
 constexpr int kPRow = kBK + 16;    // ds / p^T row stride: a warp's two rows on opposite bank halves
+constexpr int kMaxGridY = 65535;   // heads per launch: the limit of grid.y
 
 __device__ __forceinline__ float dot_in(float x, bool lowp) {
   return lowp ? __bfloat162float(__float2bfloat16_rn(x)) : x;
@@ -1042,16 +1043,35 @@ int run(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* out0, void* out1, int B,
         int H, int Sq, int Sk, int hd, int causal, int q_offset, float scale,
         int is_bf16, int lowp, int device, void* stream) {
-  if (B * H > 65535 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
   // lowp with f32 inputs is rounded to bf16 by the caller
   if (!is_bf16 && lowp) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const Args a{q, k, v, dout, lse, delta, out0, out1, B * H, Sq, Sk, hd, causal,
-               q_offset, scale, (cudaStream_t)stream};
-  err = is_bf16 ? dispatch_tc<DQ>(a, lowp == 0) : dispatch_ffma<DQ>(a);
-  return (int)err;
+  // Every grid puts b*h on grid.y, whose limit is 65535: a larger B*H runs
+  // in chunks of heads, each with its base pointers advanced (and, for the
+  // tensor-core kernels, its tensor maps encoded over the chunk), so the
+  // kernel bodies are the same code for any B*H.
+  const size_t elt = is_bf16 ? 2 : 4;
+  const int BH = B * H;
+  for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridY) {
+    const int n = BH - bh0 < kMaxGridY ? BH - bh0 : kMaxGridY;
+    const size_t rq = (size_t)bh0 * Sq, rk = (size_t)bh0 * Sk;  // rows before the chunk
+    const auto in = [&](const void* p, size_t rows) {
+      return (const void*)((const char*)p + rows * hd * elt);
+    };
+    const auto out = [&](void* p, size_t rows) {
+      return p ? (void*)((float*)p + rows * hd) : nullptr;
+    };
+    const Args a{in(q, rq), in(k, rk), in(v, rk), in(dout, rq),
+                 (const float*)lse + rq, (const float*)delta + rq,
+                 out(out0, DQ ? rq : rk), out(out1, rk), n, Sq, Sk, hd, causal,
+                 q_offset, scale, (cudaStream_t)stream};
+    err = is_bf16 ? dispatch_tc<DQ>(a, lowp == 0) : dispatch_ffma<DQ>(a);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace

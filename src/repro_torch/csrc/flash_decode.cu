@@ -43,6 +43,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmem = 232448;   // bytes of shared memory a block may use
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxGridY = 65535;    // rows of the batch per launch: the limit of grid.y
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -226,10 +227,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(K, B), kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, K, G, Smax, hd,
-      hdv, scale, lowp);
-  return cudaGetLastError();
+  // grid.y holds at most 65535 rows of the batch: a larger B runs in chunks,
+  // each launch with its base pointers advanced (the kernel body unchanged)
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int n = B - b0 < kMaxGridY ? B - b0 : kMaxGridY;
+    const size_t rows = (size_t)b0 * K * G, cache = (size_t)b0 * Smax * K;
+    kernel<<<dim3(K, n), kThreads, bytes, stream>>>(
+        (const T*)q + rows * hd, (const T*)k + cache * hd, (const T*)v + cache * hdv,
+        lengths + b0, (T*)out + rows * hdv, K, G, Smax, hd, hdv, scale, lowp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int JV>

@@ -46,6 +46,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmem = 232448;   // bytes of shared memory a block may use
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxGridY = 65535;    // rows of the batch per launch: the limit of grid.y
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -249,10 +250,19 @@ cudaError_t launch(const Args& a) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(a.K, a.B), kThreads, bytes, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.table, a.lengths,
-      (T*)a.out, a.K, a.G, a.NB, a.bs, a.nT, a.hd, a.hdv, a.scale, a.lowp);
-  return cudaGetLastError();
+  // grid.y holds at most 65535 rows of the batch: a larger B runs in chunks,
+  // each launch with its base pointers advanced (the kernel body unchanged)
+  for (int b0 = 0; b0 < a.B; b0 += kMaxGridY) {
+    const int n = a.B - b0 < kMaxGridY ? a.B - b0 : kMaxGridY;
+    const size_t rows = (size_t)b0 * a.K * a.G;
+    kernel<<<dim3(a.K, n), kThreads, bytes, a.stream>>>(
+        (const T*)a.q + rows * a.hd, (const T*)a.k, (const T*)a.v,
+        a.table + (size_t)b0 * a.nT, a.lengths + b0, (T*)a.out + rows * a.hdv, a.K,
+        a.G, a.NB, a.bs, a.nT, a.hd, a.hdv, a.scale, a.lowp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int JV>

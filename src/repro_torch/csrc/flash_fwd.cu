@@ -49,7 +49,9 @@
 // The TPU kernel cut its blocks with divisor_block, which falls to 1-row
 // blocks for a prime S; here tiles are fixed and the ragged tails of both
 // the query rows and the keys are masked in the kernel. Its grid puts B*H on
-// grid.y, so it refuses B*H > 65535 at launch.
+// grid.y, whose limit is 65535: the host launches larger B*H in chunks of
+// 65535 heads with the base pointers advanced, so the kernel body is the
+// same code for any B*H.
 //
 // The tensor-core design (modes 1 and 2), csrc/flash_bwd.cu's dq kernel with
 // one product fewer: a block is one consumer warpgroup (128 threads, 64 query
@@ -95,6 +97,7 @@ constexpr int kBQ = 64;            // query rows per block
 constexpr int kBK = 64;            // keys per tile
 constexpr int kThreads = 256;      // a 16 x 16 grid of (ty, tx)
 constexpr int kPRow = kBK + 16;    // P row stride: a warp's two rows on opposite bank halves
+constexpr int kMaxGridY = 65535;   // heads per launch: the limit of grid.y
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -299,11 +302,19 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, causal,
-      q_offset, scale, lowp);
-  return cudaGetLastError();
+  // grid.y holds at most 65535 heads: larger B*H runs in chunks of heads,
+  // each launch with its base pointers advanced (the kernel body unchanged)
+  for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridY) {
+    const int n = BH - bh0 < kMaxGridY ? BH - bh0 : kMaxGridY;
+    const size_t qo = (size_t)bh0 * Sq * HD, ko = (size_t)bh0 * Sk * HD;
+    const dim3 grid((Sq + kBQ - 1) / kBQ, n);
+    kernel<<<grid, kThreads, bytes, stream>>>(
+        (const T*)q + qo, (const T*)k + ko, (const T*)v + ko, (T*)o + qo,
+        lse + (size_t)bh0 * Sq, Sq, Sk, causal, q_offset, scale, lowp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>

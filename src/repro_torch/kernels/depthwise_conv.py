@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -38,9 +39,96 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = load_library("depthwise_conv")
-    lib.depthwise_conv.argtypes = [_P] * 3 + [_I] * 8 + [_P]
+    lib.depthwise_conv.argtypes = [_P] * 3 + [_I] * 15 + [_P]
     lib.depthwise_conv.restype = _I
     return lib
+
+
+# the kernel's fixed shape (csrc/depthwise_conv.cu): 4 channels and a strip
+# of 4 output columns a thread, at most 256 threads a block
+_VEC, _STRIP, _MAX_THREADS = 4, 4, 256
+_SMEM_BUDGET = 110 * 1024  # bytes a block: two blocks share an SM's 228 KB
+ROUTES = {"tma": 0, "cp.async": 1, "plain": 2}  # the C entry's route codes
+
+
+class DepthwisePlan(NamedTuple):
+    """How the kernel cuts one call: tiles of ``ct`` channels, ``th`` output
+    rows and ``tw`` output columns, ``rows`` of them a thread; the copy
+    ``route`` into shared memory with ``copy_bytes`` a copy; ``store_vec``
+    channels a store."""
+    ct: int
+    th: int
+    tw: int
+    rows: int
+    route: str
+    copy_bytes: int
+    store_vec: int
+
+    @property
+    def threads(self) -> int:
+        return self.ct // _VEC * (self.th // self.rows) * (self.tw // _STRIP)
+
+
+def smem_bytes(ct: int, th: int, tw: int, kh: int, kw: int, elt: int) -> int:
+    """Shared memory of one block (``smem_bytes`` in the C source): two
+    input boxes, each rounded up to 128 bytes, the f32 weights and 128 bytes
+    of alignment slack."""
+    box = (th + kh - 1) * (tw + kw - 1) * ct * elt
+    return 2 * (_cdiv(box, 128) * 128) + kh * kw * ct * 4 + 128
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def depthwise_plan(H: int, W: int, C: int, kh: int, kw: int, elt: int,
+                   x_ptr: int) -> DepthwisePlan:
+    """The tile and copy route for an (H, W, C) image, a kh x kw kernel and
+    elements of ``elt`` bytes whose tensor starts at address ``x_ptr``.
+
+    Strips of 4 columns cover up to 32 columns a tile. In bf16 a 3x3 (or
+    3x1) kernel on an image of 8 rows or more gives a thread 2 output rows
+    (in f32 their registers spill, and one row a thread was faster on the
+    H100). Thread rows fill 256 threads at 128 bytes of channels a tile (32
+    in f32, 64 in bf16); a small image takes all its rows a tile and more
+    channels instead (up to 256, split evenly over the channel tiles, in
+    16-byte units so that TMA can copy them). Two input boxes and the
+    weights fit ``_SMEM_BUDGET``, shrinking rows, then columns, then
+    channels. TMA copies the box where C * elt and the base are multiples
+    of 16 bytes; cp.async copies 16, 8 or 4 bytes, whatever the pitch and
+    base allow; plain loads take the rest (bf16 with odd C or a base 2
+    bytes off)."""
+    quantum = 16 // elt  # channels in 16 bytes
+    rows = 2 if elt == 2 and kh == 3 and kw <= 3 and H >= 8 else 1
+    ns = min(_cdiv(W, _STRIP), 8)
+    h_rows = _cdiv(H, rows)  # thread rows that cover the image
+    tr = min(h_rows, max(1, _MAX_THREADS // (128 // elt // _VEC * ns)))
+    ct_max = max(quantum, min(256, _VEC * (_MAX_THREADS // (tr * ns))) // quantum * quantum)
+    ct = _cdiv(_cdiv(C, _cdiv(C, ct_max)), quantum) * quantum
+    tr = min(h_rows, max(1, _MAX_THREADS // (ct // _VEC * ns)))
+    while smem_bytes(ct, tr * rows, _STRIP * ns, kh, kw, elt) > _SMEM_BUDGET:
+        if tr > 1:
+            tr = (tr + 1) // 2
+        elif rows > 1:
+            rows = 1
+        elif ns > 1:
+            ns //= 2
+        elif ct > quantum:
+            ct = max(quantum, ct // 2 // quantum * quantum)
+        else:
+            raise ValueError(f"depthwise_conv: a {kh}x{kw} kernel's input box does "
+                             f"not fit one block's shared memory")
+    tr = _cdiv(h_rows, _cdiv(h_rows, tr))  # as many thread rows, spread evenly over the tiles
+    th, tw = tr * rows, _STRIP * ns
+    pitch = C * elt
+    if (pitch % 16 == 0 and x_ptr % 16 == 0 and th + kh - 1 <= 256
+            and tw + kw - 1 <= 256):
+        route, copy = "tma", 16
+    else:
+        copy = next((g for g in (16, 8, 4) if pitch % g == 0 and x_ptr % g == 0), 0)
+        route, copy = ("cp.async", copy) if copy else ("plain", elt)
+    store_vec = 4 if C % 4 == 0 else 2 if C % 2 == 0 else 1
+    return DepthwisePlan(ct, th, tw, rows, route, copy, store_vec)
 
 
 def _check(x, w) -> None:
@@ -69,11 +157,13 @@ def _forward(x, w):
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    plan = depthwise_plan(H, W, C, kh, kw, x.element_size(), x.data_ptr())
     lib = _lib()
     device, stream = stream_args(x)
     rc = lib.depthwise_conv(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W,
-                            C, kh, kw, int(x.dtype == torch.bfloat16), device,
-                            stream)
+                            C, kh, kw, int(x.dtype == torch.bfloat16), plan.ct,
+                            plan.th, plan.tw, plan.rows, ROUTES[plan.route],
+                            plan.copy_bytes, plan.store_vec, device, stream)
     check_launch(lib, rc, "depthwise_conv")
     launches["depthwise_conv"] += 1
     return out

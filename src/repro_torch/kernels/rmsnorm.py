@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +38,7 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = load_library("rmsnorm")
-    lib.rmsnorm_fwd.argtypes = [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_I] * 3 + [_P]
+    lib.rmsnorm_fwd.argtypes = [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_I] * 6 + [_P]
     lib.rmsnorm_fwd.restype = _I
     lib.rmsnorm_bwd.argtypes = [_P] * 5 + [_I] * 2 + [ctypes.c_float] + [_I] * 3 + [_P]
     lib.rmsnorm_bwd.restype = _I
@@ -54,8 +55,53 @@ def _check(x2, scale) -> None:
         raise TypeError(f"rmsnorm takes f32 or bf16 x, got {x2.dtype}")
 
 
+_THREADS = 256  # threads a block (csrc/rmsnorm.cu)
+_MAX_NV = 16    # vectors a thread holds in registers
+_GROUP_NV = 2   # vectors a thread of a group (up to a warp) a row holds
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel splits rows: ``tpr`` threads a row (1-32, a
+    power of 2, several rows a warp; or 256, a block a row), each holding
+    ``nv`` vectors of ``vec`` elements (0: the row is read twice)."""
+    vec: int
+    tpr: int
+    nv: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def fwd_plan(d: int, vec: int) -> FwdPlan:
+    """The forward's row split for rows of ``d`` elements loaded ``vec`` (8,
+    4 or 1) at a time: a group of up to 32 threads a row, at 1-2 vectors a
+    thread, for rows of up to 64 vectors (several rows a warp when short); a
+    block a row beyond, up to 16 vectors a thread; past that the row is read
+    twice. Few vectors a thread spread small inputs over many blocks and
+    leave registers for the next row's loads, in flight during this row's
+    reduction."""
+    n = -(-d // vec)  # vectors in a row
+    if n <= 32 * _GROUP_NV:
+        tpr = min(32, _pow2_at_least(-(-n // _GROUP_NV)))
+        return FwdPlan(vec, tpr, _pow2_at_least(-(-n // tpr)))
+    if n <= _THREADS * _MAX_NV:
+        return FwdPlan(vec, _THREADS, _pow2_at_least(-(-n // _THREADS)))
+    return FwdPlan(vec, _THREADS, 0)
+
+
+def fwd_vec(d: int, elt: int, *ptrs: int) -> int:
+    """Elements a forward load moves: 16 bytes where d is a multiple and
+    every pointer 16-byte aligned, else 4 elements where that lines up,
+    else 1."""
+    for w in (16 // elt, 4):
+        if d % w == 0 and all(p % (w * elt) == 0 for p in ptrs):
+            return w
+    return 1
+
+
 def _vec(d: int, *tensors) -> int:
-    """1 when the kernels may load 4 elements at a time: d % 4 == 0 and
+    """1 when the backward may load 4 elements at a time: d % 4 == 0 and
     every pointer aligned to 4 of its elements."""
     return int(d % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
                                   for t in tensors))
@@ -68,15 +114,18 @@ def rmsnorm_fwd(x2, scale, eps: float = 1e-5):
         return ref_rmsnorm(x2, scale, eps)
     rows, d = x2.shape
     x2 = x2.contiguous()
-    s = scale.float().contiguous()
+    # the kernel reads f32 or bf16 scale as it is; another dtype is cast
+    s = (scale if scale.dtype in _DTYPES else scale.float()).contiguous()
     y = torch.empty_like(x2)
     if y.numel() == 0:
         return y
+    plan = fwd_plan(d, fwd_vec(d, x2.element_size(), x2.data_ptr(), y.data_ptr()))
     lib = _lib()
     device, stream = stream_args(x2)
     rc = lib.rmsnorm_fwd(x2.data_ptr(), s.data_ptr(), y.data_ptr(), rows, d,
                          float(eps), int(x2.dtype == torch.bfloat16),
-                         _vec(d, x2, s, y), device, stream)
+                         int(s.dtype == torch.bfloat16), plan.vec, plan.tpr,
+                         plan.nv, device, stream)
     check_launch(lib, rc, "rmsnorm_fwd")
     launches["rmsnorm_fwd"] += 1
     return y

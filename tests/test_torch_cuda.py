@@ -101,18 +101,10 @@ def test_flash_fwd_matches_plain_at_the_train_shape(dtype, lowp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,lowp", FWD_MODES)
 def test_flash_fwd_past_65535_heads(dtype, lowp):
-    """B*H = 65536: the tensor-core kernel's 1-D grid runs it; the FFMA
-    kernel (b*h on grid.y) refuses it at launch and raises, with no result
-    from another kernel."""
-    if dtype == torch.bfloat16:
-        _check_fwd(dtype, lowp, 1, 65536, 5, 16, True, 0, seed=65536)
-        return
-    dev = _device()
-    x = torch.zeros(1, 65536, 5, 16, device=dev, dtype=dtype)
-    before = dict(fa.launches)
-    with pytest.raises(RuntimeError, match="flash_fwd failed"):
-        fa.flash_attention_fwd_lse(x, x, x, lowp=lowp)
-    assert fa.launches == before
+    """B*H = 65536 runs in every mode and matches the plain version: the
+    tensor-core kernel's 1-D grid takes it, and the FFMA kernel (b*h on
+    grid.y, at most 65535) runs in two chunks of heads."""
+    _check_fwd(dtype, lowp, 1, 65536, 5, 16, True, 0, seed=65536)
 
 
 @pytest.mark.cuda
@@ -290,6 +282,35 @@ def test_decode_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", CASES)
+@pytest.mark.parametrize("kernel", ["flash_decode", "flash_decode_paged",
+                                    "flash_decode_spec", "flash_decode_spec_paged"])
+def test_decode_kernels_past_65535_rows(kernel, dtype, lowp):
+    """B = 65536 with a short cache runs and matches the plain version: the
+    decode grids put b on grid.y, so the launch goes in two chunks of rows,
+    one launch counted per call."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(65536)
+    B, K, G, hd, bs, T, S = 65536, 1, 2, 16, 4, 2, 2
+    cap = bs * T
+    lens = torch.randint(0, cap + 2, (B,), generator=g, device=dev, dtype=torch.int32)
+    spec = "spec" in kernel
+    q = torch.randn(B, K, *((S,) if spec else ()), G, hd, generator=g, device=dev).to(dtype)
+    if "paged" in kernel:
+        kp, vp, table = _pool_and_table(g, dev, dtype, B, K, hd, hd, bs, T)
+        args = (q, kp, vp, table, lens)
+    else:
+        k, v = (torch.randn(B, cap, K, hd, generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        args = (q, k, v, lens)
+    before = fa.launches[kernel]
+    out = getattr(fa, kernel)(*args, lowp=lowp)
+    want = getattr(ref, f"ref_{kernel}")(*args, lowp=lowp)
+    torch.testing.assert_close(out.float(), want.float(), **(BF16 if lowp else F32))
+    assert fa.launches[kernel] == before + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout,depth", [("paged", 0), ("contig", 3), ("paged", 3)])
 def test_serve_paged_and_speculative_on_the_card(layout, depth):
     """The reduced llama3.2-1b served paged and/or speculative through the
@@ -395,16 +416,28 @@ def test_flash_bwd_matches_plain_at_the_train_shape(dtype, lowp):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
-def test_flash_bwd_bf16_launch_failure_raises(kernel):
-    """A bf16 call the kernel refuses (b * h past the grid's 65535) raises
+def test_flash_bwd_bf16_launch_failure_raises(kernel, monkeypatch):
+    """A bf16 call whose tensor maps cannot be encoded (a base 2 bytes off
+    the 16-byte alignment TMA needs, past the wrapper's own check) raises
     the launch error: no result from the FFMA kernel or the plain version."""
     dev = _device()
-    x = torch.zeros(1, 65536, 1, 16, device=dev, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 65536, 1, device=dev)
+    x = torch.zeros(2 * 8 * 16 + 1, device=dev, dtype=torch.bfloat16)[1:].view(1, 2, 8, 16)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    monkeypatch.setattr(fb, "_check_aligned", lambda *a: None)
     before = dict(fb.launches)
     with pytest.raises(RuntimeError, match=f"{kernel} failed"):
         getattr(fb, kernel)(x, x, x, x, lse, lse)
     assert fb.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", BWD_MODES)
+def test_flash_bwd_past_65535_heads(dtype, lowp):
+    """B*H = 65536 runs and matches the plain version in every mode: every
+    backward grid puts b*h on grid.y, so the launch goes in two chunks of
+    heads (the tensor-core kernels' tensor maps encoded per chunk), one
+    launch counted per call."""
+    _check_bwd(dtype, lowp, 1, 65536, 5, 7, 16, True, 2)
 
 
 @pytest.mark.cuda
@@ -501,6 +534,71 @@ def test_depthwise_conv_matches_plain(dtype, shape, kh, kw):
     assert dw.launches["depthwise_conv"] == before + 1
 
 
+# every stride-1 depthwise layer of MobileNetV2 and ShuffleNetV2, (H, W, C) 3x3
+CNN_DW_LAYERS = [(32, 32, 192), (16, 16, 144), (8, 8, 192), (4, 4, 384), (4, 4, 576),
+                 (2, 2, 960), (16, 16, 58), (8, 8, 116), (4, 4, 232)]
+
+
+def _check_depthwise(x, kh, kw, seed):
+    """The kernel against its plain version on x, one launch."""
+    from repro_torch.kernels import depthwise_conv as dw
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    w = torch.randn(kh, kw, x.shape[-1], generator=g, device=x.device).to(x.dtype)
+    before = dw.launches["depthwise_conv"]
+    got = dw.depthwise_conv(x, w)
+    want = ref.ref_depthwise_conv(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(BF16 if x.dtype == torch.bfloat16 else F32))
+    assert dw.launches["depthwise_conv"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hwc", CNN_DW_LAYERS)
+def test_depthwise_conv_matches_plain_at_the_cnn_layers(dtype, hwc):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(sum(hwc))
+    x = torch.randn(16, *hwc, generator=g, device=dev).to(dtype)
+    _check_depthwise(x, 3, 3, seed=hwc[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kh,kw", [
+    ((3, 9, 7, 1), 3, 3), ((3, 9, 7, 33), 3, 3),          # pitches off 16 bytes
+    ((3, 9, 7, 58), 3, 3), ((3, 9, 7, 116), 3, 3), ((3, 9, 7, 232), 3, 3),
+    ((4, 1, 1, 64), 3, 3), ((4, 2, 2, 40), 3, 3), ((4, 3, 2, 24), 3, 3),  # below a tile
+    ((1, 32, 32, 192), 3, 3), ((1, 40, 70, 24), 3, 3),   # batch 1; column tiles
+    ((2, 12, 12, 40), 5, 3), ((2, 12, 12, 40), 5, 5), ((2, 12, 12, 40), 3, 7),
+    ((2, 12, 12, 40), 9, 1), ((2, 12, 12, 40), 7, 7), ((2, 12, 12, 40), 1, 1)])
+def test_depthwise_conv_matches_plain_at_edge_shapes(dtype, shape, kh, kw):
+    """Widths whose pitch is not a multiple of 16 bytes (cp.async or plain
+    loads), images smaller than one tile, batch 1, images wider than a tile,
+    and every kernel width with register and shared-memory weights."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + kh * kw)
+    x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    _check_depthwise(x, kh, kw, seed=kh * 10 + kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.float32, 2),
+                                          (torch.bfloat16, 2), (torch.bfloat16, 1)])
+def test_depthwise_conv_matches_plain_off_16_byte_alignment(dtype, offset):
+    """x's base ``offset`` elements past a 16-byte boundary (4 or 8 bytes in
+    f32, 4 or 2 in bf16): TMA is out, cp.async copies what lines up, plain
+    loads the rest."""
+    dev = _device()
+    shape = (2, 16, 16, 64)
+    g = torch.Generator(device=dev).manual_seed(offset)
+    n = 2 * 16 * 16 * 64
+    x = torch.randn(n + offset, generator=g, device=dev).to(dtype)[offset:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    _check_depthwise(x, 3, 3, seed=offset)
+
+
 @pytest.mark.cuda
 def test_depthwise_conv_backward_raises_on_the_card():
     from repro_torch.kernels import depthwise_conv as dw
@@ -537,6 +635,47 @@ def test_rmsnorm_fwd_bwd_match_plain(dtype, rows, d):
                                **(tol if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)))
     assert rn.launches == {"rmsnorm_fwd": before["rmsnorm_fwd"] + 1,
                            "rmsnorm_bwd": before["rmsnorm_bwd"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(37, 1), (37, 96), (37, 100), (37, 2048), (11, 4096),
+                                    (11, 8192), (11, 12288), (5, 2049), (3, 20000)])
+def test_rmsnorm_fwd_matches_plain_at_each_row_split(dtype, rows, d):
+    """Row counts that fill no block evenly, at each of the forward's row
+    splits: several rows a warp (1, 96, 100), a block a row with 1-16
+    vectors a thread (2048-12288; 2049 with scalar loads), a row read twice
+    (20000)."""
+    from repro_torch.kernels import rmsnorm as rn
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(rows * d)
+    x = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+    s = torch.randn(d, generator=g, device=dev).to(dtype)
+    before = rn.launches["rmsnorm_fwd"]
+    y = rn.rmsnorm_fwd(x, s)
+    torch.testing.assert_close(y.float(), ref.ref_rmsnorm(x, s).float(),
+                               **(BF16 if dtype == torch.bfloat16 else F32))
+    assert rn.launches["rmsnorm_fwd"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,sdtype", [(torch.float32, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.float32, torch.float16)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmsnorm_fwd_scale_dtypes_and_an_unaligned_view(dtype, sdtype, offset):
+    """scale in another dtype than x (read as it is for f32 and bf16, cast
+    for the rest), and x a view ``offset`` elements into its storage (scalar
+    loads when not 4-element aligned)."""
+    from repro_torch.kernels import rmsnorm as rn
+    dev = _device()
+    rows, d = 19, 512
+    g = torch.Generator(device=dev).manual_seed(offset)
+    x = torch.randn(rows * d + offset, generator=g, device=dev).to(dtype)[offset:].view(rows, d)
+    s = torch.randn(d, generator=g, device=dev).to(sdtype)
+    y = rn.rmsnorm_fwd(x, s)
+    torch.testing.assert_close(y.float(), ref.ref_rmsnorm(x, s).float(),
+                               **(BF16 if dtype == torch.bfloat16 else F32))
 
 
 @pytest.mark.cuda

@@ -1,9 +1,9 @@
-"""The port, ``chip_smoke.py`` and the ``bench_flash_*.py`` scripts import
+"""The port, ``chip_smoke.py`` and the ``bench_*.py`` scripts import
 neither JAX nor the JAX package.
 
 An AST scan of every ``import`` and ``from ... import`` in
-``src/repro_torch/**/*.py``, ``chip_smoke.py``, ``bench_flash_bwd.py`` and
-``bench_flash_fwd.py``:
+``src/repro_torch/**/*.py``, ``chip_smoke.py``, ``bench_flash_bwd.py``,
+``bench_flash_fwd.py`` and ``bench_depthwise_rmsnorm.py``:
 a module named ``jax`` (or under it) or ``repro`` (or under it) fails the
 test. Only the tests import both packages.
 """
@@ -14,7 +14,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_flash_bwd.py", ROOT / "bench_flash_fwd.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_flash_bwd.py", ROOT / "bench_flash_fwd.py",
+    ROOT / "bench_depthwise_rmsnorm.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
