@@ -9,9 +9,9 @@ process, in turns: parent, change, change, parent. Runs two pieces of
 ``chip_smoke.py`` (this checkout's) against that tree:
 
 - phase 3's check of ``flash_bwd_dq`` and ``flash_bwd_dkv``: B4 H32 S512
-  hd64 causal in f32, in bf16 with lowp and in bf16 without it, then a
-  ragged f32 case; each against its plain version, with the kernel's,
-  the plain version's and SDPA's backward times and the bound;
+  hd64 causal in f32, in bf16 with lowp and in bf16 without it, B2 in f32,
+  then a ragged f32 case; each against its plain version, with the
+  kernel's, the plain version's and SDPA's backward times and the bound;
 - phase 8: llama3.2-1b at full width on the default rung ladder under the
   interference trace 2:6:3.0, 10 steps, with each rung's median step ms
   and a profile of one more step on the last (bf16) rung.

@@ -344,7 +344,8 @@ def check_flash_bwd(fb, ref):
     """The two backward kernels at the train step's shape, B=4, H=32, S=512,
     hd=64, causal, in their three modes: f32 (FFMA), bf16 with lowp and
     bf16 without it (tensor cores, p and ds split into bf16 pairs, held to
-    SPLIT_TOL); then a ragged case, Sq=300 against Sk=373, full attention.
+    SPLIT_TOL); in f32 at the ``accum`` rung's microbatch, B=2; then a
+    ragged case, Sq=300 against Sk=373, full attention.
     Both kernels get the same o, lse and delta as their plain versions. The
     library yardstick is one ``torch.autograd.grad`` through SDPA (dq, dk
     and dv together; its forward runs before the timing)."""
@@ -352,6 +353,7 @@ def check_flash_bwd(fb, ref):
     g = torch.Generator(device="cuda").manual_seed(3)
     dq_checks, dkv_checks = [], []
     for B, Sq, Sk, causal, dtype, lowp in [(4, 512, 512, True, torch.float32, False),
+                                           (2, 512, 512, True, torch.float32, False),
                                            (4, 512, 512, True, torch.bfloat16, True),
                                            (4, 512, 512, True, torch.bfloat16, False),
                                            (2, 300, 373, False, torch.float32, False)]:

@@ -27,9 +27,13 @@
 //     differs from the product with the unsplit f32 operand by at most
 //     2^-16 * sum |x| |y| (times scale for dq and dk), beside the f32
 //     summation-order noise any reordering has. SPLIT = true.
-//  3. f32 inputs without lowp: the FFMA kernels (first part of this file),
-//     whose f32 sums run in the plain GEMM's order, so their results equal
-//     the plain version's bit for bit.
+//  3. f32 inputs without lowp: the FFMA kernels (first part of this file).
+//     Every f32 sum runs in order inside one thread, as a plain GEMM's
+//     does (over head dims for s and dp, over keys or query rows for dq, dk
+//     and dv), and p = 2^(s * scale * log2 e - lse * log2 e) on the
+//     special-function unit: the results differ from the plain version's
+//     (torch.exp) by a few ulp of p, ~1e-6 at the training shape, and two
+//     calls give the same bits.
 //
 // What bounds them on the H100, at the training shape (B4 H32 S512 hd64
 // causal, 16.8M live (query, key) pairs): each live pair costs 2 * hd
@@ -41,22 +45,38 @@
 // at 3.35 TB/s, against 0.0065-0.0130 ms of tensor-core work at 989
 // TFLOP/s. The f32 outputs are a third and a half of those bytes.
 //
-// The FFMA design (mode 3): the FMAs are fed from shared memory through
-// 4 x 4 register tiles (8 LDS.128 per 64 FMAs), 256 threads as a 16 x 16
-// grid (ty, tx), 64-row and 64-key tiles.
-//  - flash_bwd_dq: one block per (b, h, 64-row query tile). Q, dO, lse and
-//    delta stay resident; the block loops over KV tiles up to the causal
-//    diagonal. Thread (ty, tx) computes s and dp for rows ty + 16i and keys
-//    tx + 16j, writes ds to shared memory, then accumulates dq for rows
-//    ty + 16i and hd/16 contiguous head dims in registers.
-//  - flash_bwd_dkv: one block per (b, h, 64-key tile). K and V stay
-//    resident; the block loops over query tiles from the first one that
-//    reaches the band. Each thread computes the transposed tiles directly,
-//    s^T = K Q^T and dp^T = V dO^T, and stores p^T and ds^T key-major, so
-//    the dk/dv products read one broadcast float4 per row.
-// Row strides are padded (hd + 4, 64 + 16 floats) so that the lanes of each
-// LDS.128 phase hit distinct banks or one broadcast address.
-//
+// The FFMA design (mode 3). What holds it from the FFMA bound is shared
+// memory: a warp's LDS delivers one float to each lane per wavefront, and an
+// SM serves one wavefront a cycle against 4 x 32 FMAs, so a lane may load
+// at most one float per 4 FMAs. A lane tile of a x b outputs loads a + b
+// floats per a * b FMAs: 4 x 8 loads 0.375 a FMA (at most 67% of the FFMA
+// rate), 8 x 8 would load 0.25. 8 x 8 needs 64 accumulators per product,
+// and s and dp are live together beside dq's (or dk's and dv's): at 255
+// registers it spilled, and one warp per SMSP ran S alone slower than this
+// whole kernel (PERF.md, section 6). So lanes hold 4 x 8 (dkv at hd 128:
+// 2 x 8).
+//  - Blocks: 64 query rows (dq) or 64 keys (dkv), 4 warps (8 for dkv at hd
+//    128); a warp owns 16 (8) consecutive rows or keys, and a lane (ry, cx)
+//    = (lane / 8, lane % 8) rows or keys ry + 4i against the streamed
+//    tile's keys or rows cx + 8j. Two blocks an SM (one at hd 128).
+//  - Streamed tiles (K, V in dq; Q, dO in dkv, with lse and delta in the
+//    pad column of each Q and dO row) go through a 2-stage ring of 16-byte
+//    cp.async copies: the next tile's copies are issued right after the one
+//    block barrier of a tile, so they overlap all of this tile's FMAs. The
+//    resident tiles (Q, dO in dq; K, V in dkv) come in the first group.
+//  - s and dp (s^T, dp^T) run interleaved in one loop, two head dims a step
+//    (LDS.64). p and ds stay in registers; the third product (dq += ds K;
+//    dv += p^T dO and dk += ds^T Q) reads them through a warp-private
+//    exchange buffer, 32 keys or rows at a time behind __syncwarp: lane tile
+//    4 x 8 again (rows by head dims), one broadcast float4 of ds a row.
+//  - Rows are hd + 4 floats apart and exchange rows 40, so every LDS of a
+//    quarter-warp and every exchange store hits distinct banks.
+//  - Causal blocks launch heaviest first: dq's blockIdx.x counts down the
+//    query tiles, and dkv's key tile 0 already sees every query tile.
+//  - Shared memory (hd 64): 6 tiles of 64 x 68 floats and 4 x 16 x 40 for
+//    the exchange, 114,688 bytes a block. Registers (-Xptxas -v, sm_90a,
+//    CUDA 12.8): dq 168, 168, 254, 254 and dkv 168, 250, 254, 214 at hd 16,
+//    32, 64, 128, no spills.
 // The tensor-core design (modes 1 and 2): a block is one consumer
 // warpgroup (128 threads, 64 rows: the M of one wgmma) and one producer
 // warp. The producer's lane 0 loads tiles with TMA through 3-D tensor maps
@@ -111,120 +131,168 @@
 namespace {
 
 // ===========================================================================
+// Shared by both designs
+// ===========================================================================
+
+constexpr int kMaxGridY = 65535;  // heads per launch: the limit of grid.y
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x on the special-function unit, results below 2^-126 flushed to zero
+// (exp2f's handling of subnormal results costs extra instructions per
+// element; a p that small changes no f32 sum it enters)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ===========================================================================
 // FFMA kernels: f32 inputs without lowp
 // ===========================================================================
-// These kernels are kept as first written and measured, for f32 only. Their
-// lowp flag is 0 on every launch (an f32 call with lowp is rounded to bf16
-// by the wrapper and runs the tensor-core kernels); it stays because the
-// kernels compile as they were measured with it: without it ptxas
-// allocates dq's registers otherwise, 17% slower at Sq 300, Sk 373.
 
-constexpr int kBQ = 64;            // query rows per tile
-constexpr int kBK = 64;            // keys per tile
-constexpr int kThreads = 256;      // a 16 x 16 grid of (ty, tx)
-constexpr int kPRow = kBK + 16;    // ds / p^T row stride: a warp's two rows on opposite bank halves
-constexpr int kMaxGridY = 65535;   // heads per launch: the limit of grid.y
+constexpr int kFRows = 64;    // rows (dq) or keys (dkv) of a block, and of each streamed tile
+constexpr int kFStages = 2;   // ring of streamed tiles
+constexpr int kHalf = 32;     // streamed rows or keys a warp's exchange buffer holds
+constexpr int kXRow = kHalf + 8;  // its row stride: the lanes' stores hit 32 distinct banks
 
-__device__ __forceinline__ float dot_in(float x, bool lowp) {
-  return lowp ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+// The block's shape for one kernel and head dim. A lane holds NI rows (dq)
+// or keys (dkv), 4 apart, against 8 keys or rows, 8 apart; a warp owns 4 NI
+// consecutive rows or keys of the block. NI is 4, or 2 for dkv at hd 128,
+// whose dk and dv accumulators (2 x 16 a row) would not fit beside 4 rows.
+template <int HD, bool DQ>
+struct Ffma {
+  static constexpr int NI = (!DQ && HD == 128) ? 2 : 4;
+  static constexpr int WR = 4 * NI;            // rows or keys a warp owns
+  static constexpr int WARPS = kFRows / WR;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int ROW = HD + 4;           // floats of a staged row
+  static constexpr int SLAB = kFRows * ROW;    // floats of a staged 64-row tile
+  static constexpr int DPT = HD / 8;           // head dims of a lane's accumulators
+  // two resident tiles, kFStages pairs of streamed ones, the exchange buffers
+  static constexpr size_t SMEM =
+      ((size_t)(2 + 2 * kFStages) * SLAB + (size_t)WARPS * WR * kXRow) * sizeof(float);
+  static constexpr int MIN_BLOCKS = HD == 128 ? 1 : 2;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// four consecutive elements of a global row
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__host__ __device__ constexpr int row_stride(int hd) { return hd + 4; }
-
-// Stage rows r0 .. r0 + 63 of a (rows, HD) slab into shared memory
-// [64][HD + 4] as f32 dot inputs; rows at or past `limit` become zeros.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int r0, int limit, bool lowp) {
-  constexpr int ROW = row_stride(HD);
-  constexpr int Q4 = HD / 4;
-  for (int g = threadIdx.x; g < kBQ * Q4; g += kThreads) {
+// Issue the copies of rows r0 .. r0 + 63 of a (rows, HD) f32 slab into
+// shared [64][HD + 4], 16 bytes each; rows at or past `limit` fill with zeros.
+template <int HD, int THREADS>
+__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src, int r0,
+                                            int limit) {
+  constexpr int ROW = HD + 4, Q4 = HD / 4;
+#pragma unroll
+  for (int n = 0; n < kFRows * Q4 / THREADS; ++n) {
+    const int g = (int)threadIdx.x + n * THREADS;
     const int r = g / Q4, c = (g % Q4) * 4;
-    const int row = r0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < limit) {
-      x = load4(src + (size_t)row * HD + c);
-      x.x = dot_in(x.x, lowp); x.y = dot_in(x.y, lowp);
-      x.z = dot_in(x.z, lowp); x.w = dot_in(x.w, lowp);
-    }
-    *reinterpret_cast<float4*>(dst + r * ROW + c) = x;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * ROW + c, src + (size_t)(ok ? r0 + r : 0) * HD + c, ok);
   }
 }
 
-// acc[i][jn] += a_rows(ty + 16i) . b_rows(tx + 16jn) over HD: the 4 x 4
-// register tile of a product of two [64][HD + 4] shared-memory tiles
-template <int HD>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int ty, int tx, float (&acc)[4][4]) {
-  constexpr int ROW = row_stride(HD);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn) acc[i][jn] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; d += 4) {
-    float4 af[4], bf[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      af[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * ROW + d);
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
-      bf[jn] = *reinterpret_cast<const float4*>(b + (tx + 16 * jn) * ROW + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        acc[i][jn] = fmaf(af[i].x, bf[jn].x, acc[i][jn]);
-        acc[i][jn] = fmaf(af[i].y, bf[jn].y, acc[i][jn]);
-        acc[i][jn] = fmaf(af[i].z, bf[jn].z, acc[i][jn]);
-        acc[i][jn] = fmaf(af[i].w, bf[jn].w, acc[i][jn]);
-      }
-  }
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// N contiguous floats from shared memory, 16 bytes at a time where N allows
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&out)[N]) {
-  if constexpr (N % 4 == 0) {
+// s[i][j] = sum over d, in order, of a[4i][d] * b[8j][d], and t likewise
+// from c and e: a lane's two NI x 8 register tiles of the products that
+// reduce over the head dim (s and dp; s^T and dp^T). a, b, c and e point at
+// the lane's first row of four [.][HD + 4] tiles. The two products run in
+// one loop, two head dims a step: 2 NI + 16 LDS.64 feed 32 NI FMAs that are
+// independent of each other.
+template <int HD, int NI>
+__device__ __forceinline__ void dot_tiles(const float* a, const float* b, float (&s)[NI][8],
+                                          const float* c, const float* e, float (&t)[NI][8]) {
+  constexpr int ROW = HD + 4;
 #pragma unroll
-    for (int u = 0; u < N / 4; ++u) {
-      const float4 v = reinterpret_cast<const float4*>(p)[u];
-      out[4 * u] = v.x; out[4 * u + 1] = v.y; out[4 * u + 2] = v.z; out[4 * u + 3] = v.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x; out[1] = v.y;
-  } else {
-    out[0] = p[0];
-  }
-}
-
-// acc[i][e] += sum_kk w[(ty + 16i)][kk] * x[kk][tx * DPT + e]: w is a
-// [64][kPRow] shared tile (ds, or p^T / ds^T), x a [64][HD + 4] one
-template <int HD>
-__device__ __forceinline__ void tile_acc(const float* w, const float* x,
-                                         int ty, int tx,
-                                         float (&acc)[4][HD / 16]) {
-  constexpr int ROW = row_stride(HD);
-  constexpr int DPT = HD / 16;
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = t[i][j] = 0.f;
 #pragma unroll 4
-  for (int kk = 0; kk < kBK; kk += 4) {
-    float4 wf[4];
+  for (int d = 0; d < HD; d += 2) {
+    float2 bf[8], ef[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      wf[i] = *reinterpret_cast<const float4*>(w + (ty + 16 * i) * kPRow + kk);
+    for (int j = 0; j < 8; ++j) {
+      bf[j] = *reinterpret_cast<const float2*>(b + 8 * j * ROW + d);
+      ef[j] = *reinterpret_cast<const float2*>(e + 8 * j * ROW + d);
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const float2 af = *reinterpret_cast<const float2*>(a + 4 * i * ROW + d);
+      const float2 cf = *reinterpret_cast<const float2*>(c + 4 * i * ROW + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = fmaf(af.x, bf[j].x, s[i][j]);
+        t[i][j] = fmaf(cf.x, ef[j].x, t[i][j]);
+        s[i][j] = fmaf(af.y, bf[j].y, s[i][j]);
+        t[i][j] = fmaf(cf.y, ef[j].y, t[i][j]);
+      }
+    }
+  }
+}
+
+// The first head dim of lane column group cx: 4 contiguous dims every 32
+// (hd >= 32), or 2 contiguous dims (hd 16)
+template <int HD>
+__device__ __forceinline__ int lane_col(int cx) {
+  return HD >= 32 ? 4 * cx : 2 * cx;
+}
+
+// the lane's DPT head dims of one staged row (p at the lane's first one)
+template <int HD>
+__device__ __forceinline__ void load_cols(const float* p, float (&x)[HD / 8]) {
+  if constexpr (HD >= 32) {
+#pragma unroll
+    for (int m = 0; m < HD / 32; ++m) {
+      const float4 v = *reinterpret_cast<const float4*>(p + 32 * m);
+      x[4 * m] = v.x; x[4 * m + 1] = v.y; x[4 * m + 2] = v.z; x[4 * m + 3] = v.w;
+    }
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  }
+}
+
+// acc[i][e] += sum over kk < 32, in order, of w[4i][kk] * x[kk][e]: w is the
+// lane's first row of its warp's exchange buffer (ds, p^T or ds^T), x the
+// lane's first head dim of the half's first row in a [.][HD + 4] tile
+// (K in dq; dO or Q in dkv). Per 4 kk: NI + 4 HD / 32 loads feed 4 NI DPT FMAs.
+template <int HD, int NI>
+__device__ __forceinline__ void acc_tile(const float* w, const float* x,
+                                         float (&acc)[NI][HD / 8]) {
+  constexpr int ROW = HD + 4, DPT = HD / 8;
+#pragma unroll 2
+  for (int kk = 0; kk < kHalf; kk += 4) {
+    float4 wf[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) wf[i] = *reinterpret_cast<const float4*>(w + 4 * i * kXRow + kk);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       float xv[DPT];
-      lds<DPT>(x + (kk + u) * ROW + tx * DPT, xv);
+      load_cols<HD>(x + (kk + u) * ROW, xv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float c = u == 0 ? wf[i].x : u == 1 ? wf[i].y : u == 2 ? wf[i].z : wf[i].w;
+      for (int i = 0; i < NI; ++i) {
+        const float c = lane_of(wf[i], u);
 #pragma unroll
         for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(c, xv[e], acc[i][e]);
       }
@@ -232,186 +300,249 @@ __device__ __forceinline__ void tile_acc(const float* w, const float* x,
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void store_rows(float* __restrict__ out, size_t base,
-                                           int r0, int limit, int ty, int tx,
-                                           float mul, const float (&acc)[4][HD / 16]) {
-  constexpr int DPT = HD / 16;
+// Write the 32 (of 64) streamed rows or keys of half h of a lane's NI x 8
+// tile into its warp's exchange buffer, then let the warp read them
+template <int NI>
+__device__ __forceinline__ void exchange(float* xw, int ry, int cx, int h,
+                                         const float (&t)[NI][8]) {
+  __syncwarp();  // the warp's reads of the previous round are done
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty + 16 * i;
-    if (row < limit) {
-      float* o = out + (base + row) * HD + tx * DPT;
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) o[e] = acc[i][e] * mul;
+    for (int jj = 0; jj < 4; ++jj) xw[(ry + 4 * i) * kXRow + cx + 8 * jj] = t[i][4 * h + jj];
+  __syncwarp();
+}
+
+// rows r + 4i (below limit) of a (rows, HD) output, the lane's head dims from
+// col, times mul
+template <int HD, int NI>
+__device__ __forceinline__ void store_tile(float* __restrict__ out, int r, int limit, int col,
+                                           float mul, const float (&acc)[NI][HD / 8]) {
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int row = r + 4 * i;
+    if (row >= limit) continue;
+    float* o = out + (size_t)row * HD + col;
+    if constexpr (HD >= 32) {
+#pragma unroll
+      for (int m = 0; m < HD / 32; ++m)
+        *reinterpret_cast<float4*>(o + 32 * m) =
+            make_float4(acc[i][4 * m] * mul, acc[i][4 * m + 1] * mul, acc[i][4 * m + 2] * mul,
+                        acc[i][4 * m + 3] * mul);
+    } else {
+      *reinterpret_cast<float2*>(o) = make_float2(acc[i][0] * mul, acc[i][1] * mul);
     }
   }
 }
 
-constexpr size_t smem_floats(int hd) {
-  return 4 * (size_t)kBQ * row_stride(hd) + 2 * (size_t)kBQ * kPRow + 2 * kBQ;
-}
-
 // ---------------------------------------------------------------------------
-// dq: one block per (b, h, 64-row query tile), looping over KV tiles
+// dq: one block per (b, h, 64 query rows), streaming K and V tiles
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int Sq, int Sk, int causal,
-                    int q_offset, float scale, int lowp_flag) {
-  constexpr int ROW = row_stride(HD);
-  constexpr int DPT = HD / 16;
+template <int HD>
+__global__ void __launch_bounds__(Ffma<HD, true>::THREADS, Ffma<HD, true>::MIN_BLOCKS)
+flash_bwd_dq_ffma(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ dq, int Sq, int Sk, int causal, int q_offset,
+                  float scale) {
+  using F = Ffma<HD, true>;
+  constexpr int ROW = F::ROW, SLAB = F::SLAB, NI = F::NI;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][ROW]
-  float* dos = qs + kBQ * ROW;                  // [kBQ][ROW]
-  float* ks = dos + kBQ * ROW;                  // [kBK][ROW]
-  float* vs = ks + kBK * ROW;                   // [kBK][ROW]
-  float* dss = vs + kBK * ROW;                  // [kBQ][kPRow]
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][ROW], resident
+  float* dos = qs + SLAB;                       // [64][ROW], resident
+  float* ring = dos + SLAB;                     // [kFStages][K, V][64][ROW]
+  float* xbuf = ring + 2 * kFStages * SLAB;     // [WARPS][WR][kXRow]
 
-  const bool lowp = lowp_flag != 0;
-  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
-  const int row0 = (int)blockIdx.x * kBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ry = lane / 8, cx = lane % 8;
+  // the causal blocks with the most KV tiles start first
+  const int row0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * kFRows;
   const size_t bh = blockIdx.y;
-  const T* kb = k + bh * Sk * HD;
-  const T* vb = v + bh * Sk * HD;
-
-  stage<T, HD>(qs, q + bh * Sq * HD, row0, Sq, lowp);
-  stage<T, HD>(dos, dout + bh * Sq * HD, row0, Sq, lowp);
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    lse_r[i] = row < Sq ? lse[bh * Sq + row] : 0.f;
-    delta_r[i] = row < Sq ? delta[bh * Sq + row] : 0.f;
-  }
-
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
-
-  int n_tiles = (Sk + kBK - 1) / kBK;
+  const float* kb = k + bh * Sk * HD;
+  const float* vb = v + bh * Sk * HD;
+  int n_kv = (Sk + kFRows - 1) / kFRows;
   if (causal) {
     // KV tiles above the diagonal of this block's last live row are skipped
-    const int last_key = min(row0 + kBQ - 1, Sq - 1) + q_offset;
-    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBK + 1);
+    const int last_key = min(row0 + kFRows - 1, Sq - 1) + q_offset;
+    n_kv = last_key < 0 ? 0 : min(n_kv, last_key / kFRows + 1);
+  }
+  if (n_kv > 0) {  // Q, dO and the first K, V tile: one group
+    stage_async<HD, F::THREADS>(qs, q + bh * Sq * HD, row0, Sq);
+    stage_async<HD, F::THREADS>(dos, dout + bh * Sq * HD, row0, Sq);
+    stage_async<HD, F::THREADS>(ring, kb, 0, Sk);
+    stage_async<HD, F::THREADS>(ring + SLAB, vb, 0, Sk);
+    cp_async_commit();
   }
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int key0 = j * kBK;
-    __syncthreads();  // Q and dO are staged; the previous tile's K, V, ds are consumed
-    stage<T, HD>(ks, kb, key0, Sk, lowp);
-    stage<T, HD>(vs, vb, key0, Sk, lowp);
-    __syncthreads();
+  const int wrow = warp * F::WR;  // the warp's first row in the block
+  const int rw = row0 + wrow;
+  const float sl2 = scale * kLog2e;
+  float lse2[NI], dlt[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int row = rw + ry + 4 * i;
+    lse2[i] = row < Sq ? lse[bh * Sq + row] * kLog2e : 0.f;
+    dlt[i] = row < Sq ? delta[bh * Sq + row] : 0.f;
+  }
+  float acc[NI][F::DPT];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < F::DPT; ++e) acc[i][e] = 0.f;
+  float* xw = xbuf + warp * F::WR * kXRow;
 
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(qs, ks, ty, tx, s);
-    tile_dot<HD>(dos, vs, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty + 16 * i;
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        const int key = key0 + tx + 16 * jn;
-        const bool ok = key < Sk && row < Sq && (!causal || key <= row + q_offset);
-        const float p = ok ? expf(scale * s[i][jn] - lse_r[i]) : 0.f;
-        dss[(ty + 16 * i) * kPRow + tx + 16 * jn] = dot_in(p * (dp[i][jn] - delta_r[i]), lowp);
-      }
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in for every thread; tile j - 1's stage is free
+    if (j + 1 < n_kv) {
+      float* next = ring + ((j + 1) % kFStages) * 2 * SLAB;
+      stage_async<HD, F::THREADS>(next, kb, (j + 1) * kFRows, Sk);
+      stage_async<HD, F::THREADS>(next + SLAB, vb, (j + 1) * kFRows, Sk);
+      cp_async_commit();
     }
-    __syncthreads();
-    tile_acc<HD>(dss, ks, ty, tx, acc);  // dq += ds k
+    const float* ks = ring + (j % kFStages) * 2 * SLAB;
+    const float* vs = ks + SLAB;
+
+    // s and dp for rows rw + ry + 4i and keys key0 + cx + 8jn
+    float s[NI][8], dp[NI][8];
+    dot_tiles<HD, NI>(qs + (wrow + ry) * ROW, ks + cx * ROW, s, dos + (wrow + ry) * ROW,
+                      vs + cx * ROW, dp);
+    const int key0 = j * kFRows;
+    // rows past Sq only reach dq rows that are not stored; keys past Sk and
+    // above the diagonal are masked
+    const bool edge = key0 + kFRows > Sk || (causal && key0 + kFRows - 1 > rw + q_offset);
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        float p = exp2_ftz(fmaf(s[i][jn], sl2, -lse2[i]));
+        if (edge) {
+          const int key = key0 + cx + 8 * jn;
+          if (key >= Sk || (causal && key > rw + ry + 4 * i + q_offset)) p = 0.f;
+        }
+        dp[i][jn] = p * (dp[i][jn] - dlt[i]);  // ds
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // dq += ds k, 32 keys at a time
+      exchange<NI>(xw, ry, cx, h, dp);
+      acc_tile<HD, NI>(xw + ry * kXRow, ks + h * kHalf * ROW + lane_col<HD>(cx), acc);
+    }
   }
-  store_rows<HD>(dq, bh * Sq, row0, Sq, ty, tx, scale, acc);
+  store_tile<HD, NI>(dq + bh * Sq * HD, rw + ry, Sq, lane_col<HD>(cx), scale, acc);
 }
 
 // ---------------------------------------------------------------------------
-// dk, dv: one block per (b, h, 64-key tile), looping over query tiles
+// dk, dv: one block per (b, h, 64 keys), streaming Q, dO, lse and delta tiles
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
-                     int causal, int q_offset, float scale, int lowp_flag) {
-  constexpr int ROW = row_stride(HD);
-  constexpr int DPT = HD / 16;
+template <int HD>
+__global__ void __launch_bounds__(Ffma<HD, false>::THREADS, Ffma<HD, false>::MIN_BLOCKS)
+flash_bwd_dkv_ffma(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int causal,
+                   int q_offset, float scale) {
+  using F = Ffma<HD, false>;
+  constexpr int ROW = F::ROW, SLAB = F::SLAB, NI = F::NI;
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [kBK][ROW]
-  float* vs = ks + kBK * ROW;                   // [kBK][ROW]
-  float* qs = vs + kBK * ROW;                   // [kBQ][ROW]
-  float* dos = qs + kBQ * ROW;                  // [kBQ][ROW]
-  float* pts = dos + kBQ * ROW;                 // p^T  [kBK][kPRow]
-  float* dsts = pts + kBK * kPRow;              // ds^T [kBK][kPRow]
-  float* lse_s = dsts + kBK * kPRow;            // [kBQ]
-  float* delta_s = lse_s + kBQ;                 // [kBQ]
+  float* ks = reinterpret_cast<float*>(smem4);  // [64][ROW], resident
+  float* vs = ks + SLAB;                        // [64][ROW], resident
+  // [kFStages][Q, dO][64][ROW]; row r of a staged Q tile carries lse[r] in
+  // its first pad column (HD), of a dO tile delta[r]
+  float* ring = vs + SLAB;
+  float* xbuf = ring + 2 * kFStages * SLAB;     // [WARPS][WR][kXRow]
 
-  const bool lowp = lowp_flag != 0;
-  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
-  const int key0 = (int)blockIdx.x * kBK;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int ry = lane / 8, cx = lane % 8;
+  // key tile 0 sees every query tile: the heaviest causal blocks start first
+  const int key0 = (int)blockIdx.x * kFRows;
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * Sq * HD;
-  const T* dob = dout + bh * Sq * HD;
-
-  stage<T, HD>(ks, k + bh * Sk * HD, key0, Sk, lowp);
-  stage<T, HD>(vs, v + bh * Sk * HD, key0, Sk, lowp);
-
-  float dk_acc[4][DPT], dv_acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
-  const int n_q = (Sq + kBQ - 1) / kBQ;
+  const float* qb = q + bh * Sq * HD;
+  const float* dob = dout + bh * Sq * HD;
+  const float* lb = lse + bh * Sq;
+  const float* db = delta + bh * Sq;
   int first = 0;
   if (causal) {
     // query tiles whose last row is still above this key tile's first
     // column see none of it: start at the first one that reaches the band
     const int first_row = key0 - q_offset;
-    first = first_row <= 0 ? 0 : first_row / kBQ;
+    first = first_row <= 0 ? 0 : first_row / kFRows;
+  }
+  const int n_tiles = max(0, (Sq + kFRows - 1) / kFRows - first);
+
+  const auto stage_rows = [&](float* dst, int r0) {
+    stage_async<HD, F::THREADS>(dst, qb, r0, Sq);
+    stage_async<HD, F::THREADS>(dst + SLAB, dob, r0, Sq);
+    if (t < 2 * kFRows) {  // lse into Q's pad column, delta into dO's
+      const int r = t % kFRows;
+      const bool ok = r0 + r < Sq;
+      const int src = ok ? r0 + r : 0;
+      if (t < kFRows) cp_async4(dst + r * ROW + HD, lb + src, ok);
+      else cp_async4(dst + SLAB + r * ROW + HD, db + src, ok);
+    }
+  };
+  if (n_tiles > 0) {  // K, V and the first Q, dO tile: one group
+    stage_async<HD, F::THREADS>(ks, k + bh * Sk * HD, key0, Sk);
+    stage_async<HD, F::THREADS>(vs, v + bh * Sk * HD, key0, Sk);
+    stage_rows(ring, first * kFRows);
+    cp_async_commit();
   }
 
-  for (int qt = first; qt < n_q; ++qt) {
-    const int r0 = qt * kBQ;
-    __syncthreads();  // K and V are staged; the previous tile's Q, dO, p^T, ds^T are consumed
-    stage<T, HD>(qs, qb, r0, Sq, lowp);
-    stage<T, HD>(dos, dob, r0, Sq, lowp);
-    if (t < kBQ) {
-      const int row = r0 + t;
-      lse_s[t] = row < Sq ? lse[bh * Sq + row] : 0.f;
-      delta_s[t] = row < Sq ? delta[bh * Sq + row] : 0.f;
-    }
-    __syncthreads();
+  const int wkey = warp * F::WR;  // the warp's first key in the block
+  const int kw = key0 + wkey;
+  const float sl2 = scale * kLog2e;
+  float dk_acc[NI][F::DPT], dv_acc[NI][F::DPT];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < F::DPT; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  float* xw = xbuf + warp * F::WR * kXRow;
 
-    // s^T and dp^T for keys ty + 16i and query rows tx + 16jn
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(ks, qs, ty, tx, s);
-    tile_dot<HD>(vs, dos, ty, tx, dp);
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile it is in for every thread; tile it - 1's stage is free
+    if (it + 1 < n_tiles) {
+      stage_rows(ring + ((it + 1) % kFStages) * 2 * SLAB, (first + it + 1) * kFRows);
+      cp_async_commit();
+    }
+    const float* qs = ring + (it % kFStages) * 2 * SLAB;
+    const float* dos = qs + SLAB;
+    const int r0 = (first + it) * kFRows;
+
+    // s^T and dp^T for keys kw + ry + 4i and query rows r0 + cx + 8jn
+    float pt[NI][8], dst[NI][8];
+    dot_tiles<HD, NI>(ks + (wkey + ry) * ROW, qs + cx * ROW, pt, vs + (wkey + ry) * ROW,
+                      dos + cx * ROW, dst);
+    // keys past Sk only reach dk, dv rows that are not stored; rows past Sq
+    // and above the diagonal are masked
+    const bool edge = r0 + kFRows > Sq || (causal && kw + F::WR - 1 > r0 + q_offset);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = key0 + ty + 16 * i;
+    for (int jn = 0; jn < 8; ++jn) {
+      const int c = cx + 8 * jn;
+      const float l2 = qs[c * ROW + HD] * kLog2e, dl = dos[c * ROW + HD];
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        const int c = tx + 16 * jn;
-        const int row = r0 + c;
-        const bool ok = key < Sk && row < Sq && (!causal || key <= row + q_offset);
-        const float p = ok ? expf(scale * s[i][jn] - lse_s[c]) : 0.f;
-        pts[(ty + 16 * i) * kPRow + c] = dot_in(p, lowp);
-        dsts[(ty + 16 * i) * kPRow + c] = dot_in(p * (dp[i][jn] - delta_s[c]), lowp);
+      for (int i = 0; i < NI; ++i) {
+        float p = exp2_ftz(fmaf(pt[i][jn], sl2, -l2));
+        if (edge) {
+          const int row = r0 + c;
+          if (row >= Sq || (causal && kw + ry + 4 * i > row + q_offset)) p = 0.f;
+        }
+        dst[i][jn] = p * (dst[i][jn] - dl);  // ds^T
+        pt[i][jn] = p;                       // p^T
       }
     }
-    __syncthreads();
-    tile_acc<HD>(pts, dos, ty, tx, dv_acc);   // dv += p^T do
-    tile_acc<HD>(dsts, qs, ty, tx, dk_acc);   // dk += ds^T q
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // 32 query rows at a time
+      exchange<NI>(xw, ry, cx, h, pt);
+      acc_tile<HD, NI>(xw + ry * kXRow, dos + h * kHalf * ROW + lane_col<HD>(cx), dv_acc);
+      exchange<NI>(xw, ry, cx, h, dst);
+      acc_tile<HD, NI>(xw + ry * kXRow, qs + h * kHalf * ROW + lane_col<HD>(cx), dk_acc);
+    }
   }
-  store_rows<HD>(dk, bh * Sk, key0, Sk, ty, tx, scale, dk_acc);
-  store_rows<HD>(dv, bh * Sk, key0, Sk, ty, tx, 1.f, dv_acc);
+  const size_t keys = bh * Sk;
+  store_tile<HD, NI>(dk + keys * HD, kw + ry, Sk, lane_col<HD>(cx), scale, dk_acc);
+  store_tile<HD, NI>(dv + keys * HD, kw + ry, Sk, lane_col<HD>(cx), 1.f, dv_acc);
 }
 
 // ===========================================================================
@@ -423,12 +554,6 @@ constexpr int kStages = 2;                // ring of streamed tiles (3 and 4 wer
 constexpr int kConsumers = 128;           // one warpgroup
 constexpr int kTcThreads = kConsumers + 32;  // and one producer warp
 constexpr uint32_t kSlab = 64 * 128;      // bytes of [64 rows][64 bf16], 128-byte rows
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
                : "memory");
@@ -558,15 +683,6 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
-}
-
-// 2^x on the special-function unit, results below 2^-126 flushed to zero
-// (exp2f's handling of subnormal results costs extra instructions per
-// element; a p that small changes no f32 sum it enters)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
@@ -926,25 +1042,32 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 template <bool DQ, int HD>
 cudaError_t launch_ffma(const Args& a) {
-  constexpr size_t bytes = smem_floats(HD) * sizeof(float);
+  using F = Ffma<HD, DQ>;
   const float *q = (const float*)a.q, *k = (const float*)a.k, *v = (const float*)a.v,
               *dout = (const float*)a.dout, *lse = (const float*)a.lse,
               *delta = (const float*)a.delta;
+  // the whole shared-memory carveout, so that two blocks fit an SM
+  const auto prepare = [](auto kernel) {
+    const cudaError_t err = set_smem(kernel, F::SMEM);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  };
   if constexpr (DQ) {
-    auto kernel = flash_bwd_dq_kernel<float, HD>;
-    const cudaError_t err = set_smem(kernel, bytes);
+    auto kernel = flash_bwd_dq_ffma<HD>;
+    const cudaError_t err = prepare(kernel);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.BH);
-    kernel<<<grid, kThreads, bytes, a.stream>>>(q, k, v, dout, lse, delta, (float*)a.out0, a.Sq,
-                                                a.Sk, a.causal, a.q_offset, a.scale, 0);
+    const dim3 grid((a.Sq + kFRows - 1) / kFRows, a.BH);
+    kernel<<<grid, F::THREADS, F::SMEM, a.stream>>>(q, k, v, dout, lse, delta, (float*)a.out0,
+                                                   a.Sq, a.Sk, a.causal, a.q_offset, a.scale);
   } else {
-    auto kernel = flash_bwd_dkv_kernel<float, HD>;
-    const cudaError_t err = set_smem(kernel, bytes);
+    auto kernel = flash_bwd_dkv_ffma<HD>;
+    const cudaError_t err = prepare(kernel);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sk + kBK - 1) / kBK, a.BH);
-    kernel<<<grid, kThreads, bytes, a.stream>>>(q, k, v, dout, lse, delta, (float*)a.out0,
-                                                (float*)a.out1, a.Sq, a.Sk, a.causal,
-                                                a.q_offset, a.scale, 0);
+    const dim3 grid((a.Sk + kFRows - 1) / kFRows, a.BH);
+    kernel<<<grid, F::THREADS, F::SMEM, a.stream>>>(q, k, v, dout, lse, delta, (float*)a.out0,
+                                                   (float*)a.out1, a.Sq, a.Sk, a.causal,
+                                                   a.q_offset, a.scale);
   }
   return cudaGetLastError();
 }

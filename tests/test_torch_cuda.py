@@ -407,6 +407,49 @@ def test_flash_bwd_matches_plain(dtype, lowp, Sq, Sk, hd, causal, q_offset):
     _check_bwd(dtype, lowp, 2, 3, Sq, Sk, hd, causal, q_offset)
 
 
+# the edges of the f32 kernels' tiles: 64 rows (dq) or keys (dkv) a block
+# and a streamed tile, 16 (8 for dkv at hd 128) a warp, 32 an exchange round
+BWD_EDGE_CASES = [  # Sq, Sk, causal, q_offset
+    (1, 1, True, 0),        # one row, one key
+    (63, 63, True, 0),      # one below a tile
+    (65, 65, True, 0),      # one above a tile
+    (65, 1, False, 0),      # many rows, one key
+    (1, 65, True, 64),      # one row at the end of 65 keys
+    (63, 65, False, 0),
+    (129, 127, True, 0),    # three row tiles against two key tiles
+    (17, 100, True, 83),    # Sq != Sk, q_offset past the first tile
+    (33, 200, True, 167),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("Sq,Sk,causal,q_offset", BWD_EDGE_CASES)
+def test_flash_bwd_f32_at_the_tile_edges(hd, Sq, Sk, causal, q_offset):
+    """The f32 FFMA kernels at the edges of their tiles, in every head dim."""
+    _check_bwd(torch.float32, False, 1, 3, Sq, Sk, hd, causal, q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", [(4, 32, 512, 512, 64, True),
+                                                 (2, 4, 300, 373, 128, False)])
+def test_flash_bwd_f32_is_deterministic(B, H, Sq, Sk, hd, causal):
+    """Two calls on the same inputs give the same bits: every f32 output is
+    summed by one thread in a fixed order, with no atomics."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(Sq)
+    q, do = (torch.randn(B, H, Sq, hd, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(B, H, Sk, hd, generator=g, device=dev) for _ in range(2))
+    o, lse = ref.ref_flash_attention_fwd(q, k, v, causal=causal)
+    delta = (do * o).sum(-1)
+    first = (fb.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+             *fb.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+    second = (fb.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+              *fb.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,lowp", BWD_MODES)
 def test_flash_bwd_matches_plain_at_the_train_shape(dtype, lowp):

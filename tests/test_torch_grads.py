@@ -96,6 +96,13 @@ BWD_CASES = [  # B, H, Sq, Sk, hd, causal, q_offset
     (2, 3, 37, 37, 16, True, 0),
     (1, 2, 64, 64, 64, False, 0),
     (2, 2, 16, 48, 16, True, 32),     # q_offset: a query chunk at the end
+    # the edges of the card kernels' 64-row, 64-key tiles (tests/test_torch_cuda.py)
+    (1, 1, 1, 1, 64, True, 0),        # one row, one key
+    (1, 2, 63, 63, 32, True, 0),      # one below a tile
+    (1, 2, 65, 65, 16, True, 0),      # one above a tile
+    (1, 1, 65, 1, 128, False, 0),     # many rows, one key
+    (1, 1, 1, 65, 16, True, 64),      # one row at the end of 65 keys
+    (1, 2, 17, 100, 64, True, 83),    # Sq != Sk, q_offset past the first tile
 ]
 
 
