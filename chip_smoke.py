@@ -17,8 +17,9 @@ Phases (any failure raises and the script exits non-zero):
    (``kernels/ref.py``) on the same inputs: 2e-5 in f32, 5e-2 with bf16 dot
    inputs, 1e-3 for the attention kernels' bf16 inputs without lowp (the
    forward's bf16 o against the plain version's f32 result, beside half a
-   bf16 unit for its own rounding). The forward runs in its three modes:
-   f32 (FFMA), bf16 with lowp and bf16 without it (tensor cores).
+   bf16 unit for its own rounding). The forward runs in its four modes:
+   f32 without and with lowp (FFMA), bf16 with lowp and bf16 without it
+   (tensor cores).
    Times the kernel, the plain version and one PyTorch library call for the
    same function (``scaled_dot_product_attention``, its backward through
    ``torch.autograd.grad`` for the backward kernels; used here only as a
@@ -105,7 +106,8 @@ Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 also holds the three paged and speculative kernels against
 their plain versions (B8 K8 G4 hd64, 64 blocks of 16, a shuffled table with
 out-of-range entries, ragged lengths including 0 and past the capacity,
-speculative windows of S = 2 and 5); their library yardsticks are one SDPA
+speculative windows of S = 2 and 5; the paged decode also at 512 blocks a
+row, in the splits its plan chose); their library yardsticks are one SDPA
 call with a boolean mask (speculative, contiguous) and a gather followed by
 SDPA (the paged two, two calls). It holds the depthwise kernel at every
 stride-1 depthwise layer shape of MobileNetV2 and ShuffleNetV2 at batch 128
@@ -227,16 +229,19 @@ def max_err_bf16_out(got, want, tol) -> tuple[float, bool]:
 def check_flash_fwd(fa, ref):
     """Prefill attention: B=1, H=32, hd=64, causal, at S=512, a prime S near
     it and S=256 (inside the serve run's prompt range); then the train
-    step's B=4, S=512. In its three modes: f32 (the FFMA kernel), bf16 with
-    lowp and bf16 without it (the tensor-core kernel, p split into bf16
-    pairs: o within SPLIT_TOL of the plain version's f32 result beside its
-    own rounding to bf16, lse within SPLIT_TOL)."""
+    step's B=4, S=512. In its four modes: f32 without and with lowp (the
+    FFMA kernel), bf16 with lowp and bf16 without it (the tensor-core
+    kernel, p split into bf16 pairs: o within SPLIT_TOL of the plain
+    version's f32 result beside its own rounding to bf16, lse within
+    SPLIT_TOL). Each f32 check records the FFMA kernel's groups of warps a
+    block, where the tree's wrapper has that plan."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(1)
     checks = []
     for B, S, dtype, lowp in [(1, 512, torch.float32, False),
                               (1, 509, torch.float32, False),
                               (1, 256, torch.float32, False),
+                              (1, 512, torch.float32, True),
                               (1, 512, torch.bfloat16, True),
                               (1, 509, torch.bfloat16, True),
                               (1, 512, torch.bfloat16, False),
@@ -280,6 +285,9 @@ def check_flash_fwd(fa, ref):
             else "operations",
             "o_tol_plus_half_bf16_unit": split,
         }
+        if dtype == torch.float32 and hasattr(fa, "fwd_groups"):
+            c["groups"] = fa.fwd_groups(-(-S // 64) * B * H, hd,
+                                        torch.cuda.get_device_properties(0).multi_processor_count)
         print(f"[kernels] flash_fwd {c['shape']} {c['dtype']} lowp={lowp}: "
               f"max_abs_err={c['max_abs_err']:.3g} (tol {c['tol']}) "
               f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
@@ -463,15 +471,23 @@ DEC = dict(B=8, K=8, G=4, hd=64, bs=16, T=64)  # the paged serve run's shapes
 
 def check_flash_decode_paged(fa, ref, gather):
     """Paged decode at the paged serve run's shape: B=8, K=8, G=4, hd=64,
-    64 blocks of 16 per row, ragged lengths including 0 and past T*bs."""
+    64 blocks of 16 per row, ragged lengths including 0 and past T*bs; then
+    in f32 at a long table, T=512 (lengths up to 8200), which the kernel
+    cuts into many splits. Each check records the splits of the tree's
+    plan (1 where the tree has none)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(4)
-    B, K, G, hd, bs, T = (DEC[k] for k in ("B", "K", "G", "hd", "bs", "T"))
-    cap = bs * T
-    lens_list = [0, 1, 193, 300, 511, 700, 1024, 1030]
-    lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    B, K, G, hd, bs = (DEC[k] for k in ("B", "K", "G", "hd", "bs"))
     checks = []
-    for dtype, lowp in [(torch.float32, False), (torch.bfloat16, True)]:
+    for T, dtype, lowp in [(DEC["T"], torch.float32, False), (DEC["T"], torch.bfloat16, True),
+                           (512, torch.float32, False)]:
+        cap = bs * T
+        lens_list = ([0, 1, 193, 300, 511, 700, 1024, 1030] if T == DEC["T"]
+                     else [0, 1, 193, 1030, 2900, 5000, 8192, 8200])
+        lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        splits = (fa.decode_paged_plan(T, bs, B * K * -(-G // fa.DECODE_ROWS),
+                                       torch.cuda.get_device_properties(0).multi_processor_count)[0]
+                  if hasattr(fa, "decode_paged_plan") else 1)
         q = torch.randn(B, K, G, hd, generator=g, device="cuda").to(dtype)
         kp, vp, table = paged_inputs(g, dtype, B, K, hd, bs, T)
         out = fa.flash_decode_paged(q, kp, vp, table, lengths, lowp=lowp)
@@ -492,8 +508,9 @@ def check_flash_decode_paged(fa, ref, gather):
         live = sum(min(n, cap) for n in lens_list)
         nbytes = live * K * 2 * hd * elt + 2 * B * K * G * hd * elt + B * T * 4 + B * 4
         checks.append(kernel_check(
-            "flash_decode_paged", out, want, BF16_TOL if lowp else F32_TOL,
-            shape=[B, K, G, hd, bs, T], lengths=lens_list,
+            f"flash_decode_paged T={T} splits={splits}", out, want,
+            BF16_TOL if lowp else F32_TOL,
+            shape=[B, K, G, hd, bs, T], lengths=lens_list, splits=splits,
             dtype=str(dtype).replace("torch.", ""),
             ms=time_ms(lambda: fa.flash_decode_paged(q, kp, vp, table, lengths,
                                                      lowp=lowp)),
@@ -839,9 +856,10 @@ def streams_of(done):
     return {u: f.tokens for u, f in done.items()}
 
 
-def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams):
-    """Phases 9-11. Returns (the serve_paged and serve_spec JSON objects,
-    each new path's launch counts)."""
+def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
+                          spec_phase: bool = True):
+    """Phases 9-11 (9-10 without ``spec_phase``). Returns (the serve_paged
+    and serve_spec JSON objects, each new path's launch counts)."""
     model = build_model(cfg, impl="pallas", device="cuda")
     params = model.init(model.generator(0))
     naive = build_model(cfg, impl="naive", device="cuda")
@@ -893,7 +911,8 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams):
     # -- phase 11: speculative, contiguous and paged --------------------------
     spec = {}
     for path, kw, kname in (("spec_contig", {}, "flash_decode_spec"),
-                            ("spec_paged", paged_kw, "flash_decode_spec_paged")):
+                            ("spec_paged", paged_kw, "flash_decode_spec_paged")
+                            )[:2 if spec_phase else 0]:
         streams, eng, wall, st = run(path, model, reqs,
                                      draft_depth=PAGED["draft_depth"], **kw)
         check(launches[path][kname] > 0, f"{path} did not launch {kname}")
@@ -914,12 +933,13 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams):
                       "spec_drafted": st["spec_drafted"],
                       "acceptance": st["spec_acceptance"],
                       "identical_streams": ident, "launches": launches[path]}
-    prof_spec = profile_decode(serve, model, params, reqs, label=", spec paged",
-                               budget=60, draft_depth=PAGED["draft_depth"],
-                               **paged_kw)
-    spec["decode_step_profile_paged"] = {"host_ms": prof_spec[0],
-                                         "device_ms": prof_spec[1]}
-    spec["draft_depth"] = PAGED["draft_depth"]
+    if spec_phase:
+        prof_spec = profile_decode(serve, model, params, reqs, label=", spec paged",
+                                   budget=60, draft_depth=PAGED["draft_depth"],
+                                   **paged_kw)
+        spec["decode_step_profile_paged"] = {"host_ms": prof_spec[0],
+                                             "device_ms": prof_spec[1]}
+        spec["draft_depth"] = PAGED["draft_depth"]
 
     paged_out = {
         "block_size": bs, "num_blocks": st_p["pool"]["num_blocks"],
@@ -1658,6 +1678,9 @@ def main() -> int:
         return {f"{c['dtype']}{'+lowp' if c['lowp'] else ''}": c["ms"]
                 for c in checks if keep(c)}
     kernels[0]["ms_by_mode"] = by_mode(fwd, lambda c: c["shape"][:3] == [1, 32, 512])
+    # the f32 forward at each prefill length and at the train step's B4
+    kernels[0]["ms_f32_by_shape"] = {f"B{c['shape'][0]} S{c['shape'][2]}": c["ms"]
+                                     for c in fwd if c["dtype"] == "float32" and not c["lowp"]}
     for e in kernels[1:3]:
         e["ms_by_mode"] = by_mode(e["checks"], lambda c: c["shape"][0] == TRAIN["batch"])
     # the paths that ran after phase 4 launched these too

@@ -19,12 +19,17 @@
 //     leaves at most 2^-16 sum p|v| per output before the division by l
 //     (csrc/flash_bwd.cu splits p and ds the same way). SPLIT = true.
 //  3. f32 inputs, with or without lowp: the FFMA kernel (first part of this
-//     file), kept as first written and measured. Under lowp it rounds
-//     q * scale formed in f32, as the reference does; rounding an f32 q to
-//     bf16 first would round twice, so f32 calls never take the tensor cores.
+//     file). s = (q * scale).k with q * scale formed in f32, as the plain
+//     version does; under lowp (a template parameter, so the plain f32 path
+//     pays nothing for it) q * scale, k, v and p are rounded to bf16 at the
+//     reference's points, l summing the unrounded p. Rounding an f32 q to
+//     bf16 before the scale would round twice, so f32 calls never take the
+//     tensor cores. Every sum runs in a fixed order (no atomics), so two
+//     calls give the same bits.
 // m, l and the accumulator are f32 in every mode; o = acc / max(l, 1e-30) in
-// q's dtype, lse = m + log(max(l, 1e-30)) in the reference's scaled units,
-// masked scores -1e30 (the JAX kernels' NEG_INF).
+// q's dtype, lse = m + log(max(l, 1e-30)) in the reference's scaled units
+// (natural log), masked scores -1e30 (the JAX kernels' NEG_INF) or, inside
+// a tile, -inf, which p = 2^(s log2 e - m log2 e) turns into exact zeros.
 //
 // What bounds it on the H100: at the prefill shapes of the serve path
 // (S ~ 200..512, hd 64) the work is ~4*hd FLOPs per (query, key) pair against
@@ -33,25 +38,43 @@
 // bound by bytes: B1 H32 S512 hd64 causal moves 8.45 MB, 0.0025 ms at 3.35
 // TB/s, against 0.0011 ms of products (0.0016 with the split P V).
 //
-// The FFMA design (mode 3): the FMAs are fed from shared memory, whose
-// 128 bytes per clock per SM would cap a kernel that loads one operand per
-// FMA at a quarter of the FMA rate. So each thread computes a 4 x 4 register
-// tile, as a SIMT GEMM does: a block of 64 query rows and 256 threads stages
-// Q, then one 64-key tile of K and V at a time, in shared memory; thread
-// (ty, tx) owns query rows ty + 16i and, for S = Q K^T, keys tx + 16j, so per
-// four head dims it loads four Q and four K float4s (LDS.128) for 64 FMAs.
-// The row max and sum of the online softmax reduce over the 16 threads of a
-// row with four shuffles each; P goes through shared memory, and for O += P V
-// the same thread owns rows ty + 16i and hd/16 contiguous head dims, again
-// 4+4 float4 loads per 64 FMAs. Row strides are padded so that the eight
-// lanes of each LDS.128 phase hit distinct banks or read one broadcast
-// address. Each K/V tile is read from device memory once per 64 query rows.
-// The TPU kernel cut its blocks with divisor_block, which falls to 1-row
-// blocks for a prime S; here tiles are fixed and the ragged tails of both
-// the query rows and the keys are masked in the kernel. Its grid puts B*H on
-// grid.y, whose limit is 65535: the host launches larger B*H in chunks of
-// 65535 heads with the base pointers advanced, so the kernel body is the
-// same code for any B*H.
+// The FFMA design (mode 3), csrc/flash_bwd.cu's dq kernel with one product
+// fewer. What holds it from the FFMA bound is shared memory: a warp's LDS
+// gives each lane one float per wavefront, and an SM serves one wavefront a
+// cycle against 4 x 32 FMAs, so a lane may load one float per 4 FMAs. A lane
+// tile of a x b outputs loads a + b floats per a * b FMAs: 4 x 8 loads 0.375
+// (at most 67% of the FFMA rate); 8 x 8 spilled at 255 registers in the
+// backward.
+//  - Blocks of 64 query rows. A group is 4 warps of 16 rows each; lane
+//    (ry, cx) = (lane / 8, lane % 8) holds rows ry + 4i of its warp against
+//    keys cx + 8j of the tile (a 4 x 8 tile of s) and, for O += P V, the same
+//    rows against head dims 4 cx + 32 m (2 cx at hd 16).
+//  - Q is staged once (then scaled, and rounded under lowp, in place). K and
+//    V tiles of 64 keys come through a 2-stage ring of 16-byte cp.async
+//    copies, the next tile's issued right after the one barrier of a tile,
+//    so they overlap all of this tile's FMAs. Under lowp a tile is rounded
+//    in place once it has landed, behind one more barrier.
+//  - s runs two head dims a step (LDS.64): 4 + 8 loads feed 64 independent
+//    FMAs. p = 2^(s log2 e - m log2 e) is one FMA and one ex2.approx; the row
+//    max reduces over the 8 lanes of a row with three shuffles, and each lane
+//    keeps l over its own keys until the end.
+//  - p reaches O += P V through a warp-private exchange buffer, 32 keys at a
+//    time behind __syncwarp (no block barrier): one broadcast float4 of p a
+//    row per 4 keys, one float4 of V per key.
+//  - Rows are hd + 4 floats apart and exchange rows 40, so every LDS of a
+//    quarter-warp and every exchange store hits distinct banks.
+//  - A 1-D grid over (query tile, b*h), the query tiles with the most KV
+//    tiles first, so the light causal tiles fill in behind the heavy ones and
+//    B*H has no 65535 limit.
+//  - GROUPS = 2 for grids too small to give each SM two blocks (the serve
+//    prefills: B1 H32 S 192-320 is 96-160 blocks on 132 SMs): two groups of
+//    4 warps share the block's Q, take its KV tiles alternately, each with
+//    its own ring and named barrier, and merge their (m, l, acc) through
+//    shared memory at the end, so a diagonal block's work runs on 8 warps.
+//    The wrapper chooses GROUPS (kernels/flash_attention.py::fwd_groups).
+//  - Shared memory at hd 64: 5 tiles of 64 x 68 floats and 4 exchange
+//    buffers, 97,280 bytes (two blocks an SM); GROUPS = 2, 9 tiles and 8
+//    buffers, 177,152. hd 128 runs GROUPS = 1 only (one block an SM).
 //
 // The tensor-core design (modes 1 and 2), csrc/flash_bwd.cu's dq kernel with
 // one product fewer: a block is one consumer warpgroup (128 threads, 64 query
@@ -79,9 +102,9 @@
 // SPLIT); built for two blocks per SM.
 //
 // Layout: q (B,H,Sq,HD), k and v (B,H,Sk,HD), o (B,H,Sq,HD), all contiguous,
-// in f32 or bf16 (16-byte aligned for the tensor maps), HD in {16, 32, 64,
-// 128}; lse (B,H,Sq) f32. The kernels allocate nothing and launch on the
-// caller's stream.
+// in f32 or bf16 (16-byte aligned for the tensor maps and the copies), HD in
+// {16, 32, 64, 128}; lse (B,H,Sq) f32. The kernels allocate nothing and
+// launch on the caller's stream.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in libcuda at run time
 #include <cuda_bf16.h>
@@ -91,246 +114,433 @@
 
 namespace {
 
+// ===========================================================================
+// Shared by both designs
+// ===========================================================================
+
 constexpr float kNegInf = -1e30f;  // the JAX kernels' NEG_INF, not -inf
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBQ = 64;            // query rows per block
-constexpr int kBK = 64;            // keys per tile
-constexpr int kThreads = 256;      // a 16 x 16 grid of (ty, tx)
-constexpr int kPRow = kBK + 16;    // P row stride: a warp's two rows on opposite bank halves
-constexpr int kMaxGridY = 65535;   // heads per launch: the limit of grid.y
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// a dot input: bf16-rounded under `lowp`, else as is
-__device__ __forceinline__ float dot_in(float x, bool lowp) {
-  return lowp ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// reduce over the 16 lanes (tx) that share a query row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+// 2^x on the special-function unit, results below 2^-126 flushed to zero
+// (a p that small changes no f32 sum it enters)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// N contiguous floats from shared memory, 16 bytes at a time where N allows
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&out)[N]) {
-  if constexpr (N % 4 == 0) {
+// ===========================================================================
+// FFMA kernel: f32 inputs, with or without lowp
+// ===========================================================================
+
+constexpr int kFRows = 64;        // query rows of a block, and keys of a streamed tile
+constexpr int kFStages = 2;       // ring of K, V tiles of each group
+constexpr int kGroupWarps = 4;    // warps of a group, 16 query rows each
+constexpr int kGroupThreads = 32 * kGroupWarps;
+constexpr int kWarpRows = kFRows / kGroupWarps;
+constexpr int kHalf = 32;         // keys a warp's exchange buffer holds
+constexpr int kXRow = kHalf + 8;  // its row stride: the lanes' stores hit 32 distinct banks
+
+// The block's shape for one head dim and number of groups.
+template <int HD, int GROUPS>
+struct Ffma {
+  static constexpr int ROW = HD + 4;         // floats of a staged row
+  static constexpr int SLAB = kFRows * ROW;  // floats of a staged 64-row tile
+  static constexpr int DPT = HD / 8;         // head dims of a lane's accumulators
+  static constexpr int THREADS = kGroupThreads * GROUPS;
+  // Q, kFStages pairs of K, V tiles per group, the exchange buffers
+  static constexpr size_t SMEM =
+      ((size_t)(1 + 2 * kFStages * GROUPS) * SLAB +
+       (size_t)kGroupWarps * GROUPS * kWarpRows * kXRow) * sizeof(float);
+  static constexpr int MIN_BLOCKS = (GROUPS == 1 && HD <= 64) ? 2 : 1;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// x rounded to bf16 (round to nearest even) and back: a lowp dot input
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Issue the copies of rows r0 .. r0 + 63 of a (rows, HD) f32 slab into
+// shared [64][HD + 4], 16 bytes each, by the NT threads of index tid; rows at
+// or past `limit` fill with zeros.
+template <int HD, int NT>
+__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src, int r0,
+                                            int limit, int tid) {
+  constexpr int ROW = HD + 4, Q4 = HD / 4;
 #pragma unroll
-    for (int u = 0; u < N / 4; ++u) {
-      const float4 v = reinterpret_cast<const float4*>(p)[u];
-      out[4 * u] = v.x; out[4 * u + 1] = v.y; out[4 * u + 2] = v.z; out[4 * u + 3] = v.w;
+  for (int n = 0; n < kFRows * Q4 / NT; ++n) {
+    const int g = tid + n * NT;
+    const int r = g / Q4, c = (g % Q4) * 4;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * ROW + c, src + (size_t)(ok ? r0 + r : 0) * HD + c, ok);
+  }
+}
+
+// x = round(x * mul) in place over a staged [64][HD + 4] tile, by NT threads:
+// round is bf16 rounding under LOWP, else nothing
+template <int HD, int NT, bool LOWP>
+__device__ __forceinline__ void scale_tile(float* tile, float mul, int tid) {
+  constexpr int ROW = HD + 4, Q4 = HD / 4;
+#pragma unroll
+  for (int n = 0; n < kFRows * Q4 / NT; ++n) {
+    const int g = tid + n * NT;
+    float4* p = reinterpret_cast<float4*>(tile + (g / Q4) * ROW + (g % Q4) * 4);
+    float4 x = *p;
+    x.x *= mul; x.y *= mul; x.z *= mul; x.w *= mul;
+    if constexpr (LOWP) {
+      x.x = bf16_round(x.x); x.y = bf16_round(x.y);
+      x.z = bf16_round(x.z); x.w = bf16_round(x.w);
     }
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x; out[1] = v.y;
+    *p = x;
+  }
+}
+
+// the barrier of one group of warps: the block's for one group, a named
+// barrier (1 + grp) of the group's threads for two
+template <int GROUPS>
+__device__ __forceinline__ void group_sync(int grp) {
+  if constexpr (GROUPS == 1) {
+    __syncthreads();
   } else {
-    out[0] = p[0];
+    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "n"(kGroupThreads) : "memory");
   }
 }
 
-__host__ __device__ constexpr int row_stride(int hd) { return hd + 4; }
-
-constexpr size_t smem_floats(int hd) {
-  return 3 * (size_t)kBQ * row_stride(hd) + (size_t)kBQ * kPRow;
+// s[i][j] = sum over d, in order, of a[4i][d] * b[8j][d]: a lane's 4 x 8
+// register tile of s = Q K^T. a and b point at the lane's first row of two
+// [.][HD + 4] tiles. Two head dims a step: 4 + 8 LDS.64 feed 64 FMAs that
+// are independent of each other.
+template <int HD>
+__device__ __forceinline__ void dot_tile(const float* a, const float* b, float (&s)[4][8]) {
+  constexpr int ROW = HD + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 2) {
+    float2 bf[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bf[j] = *reinterpret_cast<const float2*>(b + 8 * j * ROW + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 af = *reinterpret_cast<const float2*>(a + 4 * i * ROW + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = fmaf(af.x, bf[j].x, s[i][j]);
+        s[i][j] = fmaf(af.y, bf[j].y, s[i][j]);
+      }
+    }
+  }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, int causal,
-                 int q_offset, float scale, int lowp_flag) {
-  constexpr int ROW = row_stride(HD);  // Q/K/V shared-memory row stride (floats)
-  constexpr int DPT = HD / 16;         // output head dims per thread
+// The first head dim of lane column group cx: 4 contiguous dims every 32
+// (hd >= 32), or 2 contiguous dims (hd 16)
+template <int HD>
+__device__ __forceinline__ int lane_col(int cx) {
+  return HD >= 32 ? 4 * cx : 2 * cx;
+}
+
+// the lane's DPT head dims of one staged row (p at the lane's first one)
+template <int HD>
+__device__ __forceinline__ void load_cols(const float* p, float (&x)[HD / 8]) {
+  if constexpr (HD >= 32) {
+#pragma unroll
+    for (int m = 0; m < HD / 32; ++m) {
+      const float4 v = *reinterpret_cast<const float4*>(p + 32 * m);
+      x[4 * m] = v.x; x[4 * m + 1] = v.y; x[4 * m + 2] = v.z; x[4 * m + 3] = v.w;
+    }
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// acc[i][e] += sum over kk < 32, in order, of w[4i][kk] * x[kk][e]: w is the
+// lane's first row of its warp's exchange buffer (p), x the lane's first head
+// dim of the half's first key in the staged V tile. Per 4 keys: 4 + 4 HD / 32
+// loads feed 16 DPT FMAs.
+template <int HD>
+__device__ __forceinline__ void acc_tile(const float* w, const float* x,
+                                         float (&acc)[4][HD / 8]) {
+  constexpr int ROW = HD + 4, DPT = HD / 8;
+#pragma unroll 2
+  for (int kk = 0; kk < kHalf; kk += 4) {
+    float4 wf[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wf[i] = *reinterpret_cast<const float4*>(w + 4 * i * kXRow + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float xv[DPT];
+      load_cols<HD>(x + (kk + u) * ROW, xv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float c = lane_of(wf[i], u);
+#pragma unroll
+        for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(c, xv[e], acc[i][e]);
+      }
+    }
+  }
+}
+
+// Write keys 32h .. 32h + 31 of a lane's 4 x 8 tile of p into its warp's
+// exchange buffer (bf16-rounded under LOWP), then let the warp read them
+template <bool LOWP>
+__device__ __forceinline__ void exchange(float* xw, int ry, int cx, int h,
+                                         const float (&p)[4][8]) {
+  __syncwarp();  // the warp's reads of the previous round are done
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float x = p[i][4 * h + jj];
+      xw[(ry + 4 * i) * kXRow + cx + 8 * jj] = LOWP ? bf16_round(x) : x;
+    }
+  __syncwarp();
+}
+
+// max and sum over the 8 lanes (cx) that share a row
+__device__ __forceinline__ float row_max8(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum8(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// One block per (64 query rows, b*h) on a 1-D grid; GROUPS groups of 4 warps
+// take its KV tiles alternately. Rows of a causal call with q_offset < 0
+// that see no key at all get o = 0 and lse = -1e30.
+template <int HD, bool LOWP, int GROUPS>
+__global__ void __launch_bounds__(Ffma<HD, GROUPS>::THREADS, Ffma<HD, GROUPS>::MIN_BLOCKS)
+flash_fwd_ffma(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+               int BH, int Sq, int Sk, int causal, int q_offset, float scale) {
+  using F = Ffma<HD, GROUPS>;
+  constexpr int ROW = F::ROW, SLAB = F::SLAB, DPT = F::DPT;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][ROW]
-  float* ks = qs + kBQ * ROW;                   // [kBK][ROW]
-  float* vs = ks + kBK * ROW;                   // [kBK][ROW]
-  float* ps = vs + kBK * ROW;                   // [kBQ][kPRow]
+  float* qs = reinterpret_cast<float*>(smem4);      // [64][ROW], resident
+  float* rings = qs + SLAB;                         // [GROUPS][kFStages][K, V][64][ROW]
+  float* xbuf = rings + GROUPS * kFStages * 2 * SLAB;  // [GROUPS * 4 warps][16][kXRow]
 
-  const bool lowp = lowp_flag != 0;
-  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
-  const int row0 = (int)blockIdx.x * kBQ;
-  const size_t bh = blockIdx.y;
-  const T* qb = q + bh * Sq * HD;
-  const T* kb = k + bh * Sk * HD;
-  const T* vb = v + bh * Sk * HD;
-
-  for (int idx = t; idx < kBQ * HD; idx += kThreads) {
-    const int r = idx / HD, c = idx % HD;
-    const int row = row0 + r;
-    qs[r * ROW + c] = row < Sq ? dot_in(to_f32(qb[(size_t)row * HD + c]) * scale, lowp) : 0.f;
+  const int t = threadIdx.x, grp = t / kGroupThreads, gt = t % kGroupThreads;
+  const int warp = gt / 32, lane = t % 32, ry = lane / 8, cx = lane % 8;
+  // block b: head b % BH, query tile n_q - 1 - b / BH (the causal tiles with
+  // the most KV tiles start first)
+  const int n_q = (Sq + kFRows - 1) / kFRows;
+  const size_t bh = blockIdx.x % (unsigned)BH;
+  const int row0 = (n_q - 1 - (int)(blockIdx.x / (unsigned)BH)) * kFRows;
+  const float* kb = k + bh * Sk * HD;
+  const float* vb = v + bh * Sk * HD;
+  int n_kv = (Sk + kFRows - 1) / kFRows;
+  if (causal) {
+    // KV tiles above the diagonal of this block's last live row are skipped
+    const int last_key = min(row0 + kFRows - 1, Sq - 1) + q_offset;
+    n_kv = last_key < 0 ? 0 : min(n_kv, last_key / kFRows + 1);
+  }
+  float* ring = rings + grp * kFStages * 2 * SLAB;
+  if (n_kv > 0) {  // Q and each group's first K, V tile: one copy group
+    stage_async<HD, F::THREADS>(qs, q + bh * Sq * HD, row0, Sq, t);
+    if (grp < n_kv) {
+      stage_async<HD, kGroupThreads>(ring, kb, grp * kFRows, Sk, gt);
+      stage_async<HD, kGroupThreads>(ring + SLAB, vb, grp * kFRows, Sk, gt);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    scale_tile<HD, F::THREADS, LOWP>(qs, scale, t);  // q * scale, as the reference forms it
+    __syncthreads();
   }
 
+  const int wrow = warp * kWarpRows;  // the warp's first row in the block
+  const int rw = row0 + wrow;
   float m[4], l[4], acc[4][DPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
-    l[i] = 0.f;
+    l[i] = 0.f;  // this lane's keys only, until the end
 #pragma unroll
     for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
   }
+  float* xw = xbuf + (grp * kGroupWarps + warp) * kWarpRows * kXRow;
 
-  int n_tiles = (Sk + kBK - 1) / kBK;
-  if (causal) {
-    // skip KV tiles above the diagonal of this block's last live row
-    const int last_key = min(row0 + kBQ - 1, Sq - 1) + q_offset;
-    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBK + 1);
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int key0 = j * kBK;
-    __syncthreads();  // Q is staged; the previous tile's K, V and P are consumed
-    for (int idx = t; idx < kBK * HD; idx += kThreads) {
-      const int r = idx / HD, c = idx % HD;
-      const int key = key0 + r;
-      const bool in = key < Sk;
-      ks[r * ROW + c] = in ? dot_in(to_f32(kb[(size_t)key * HD + c]), lowp) : 0.f;
-      vs[r * ROW + c] = in ? dot_in(to_f32(vb[(size_t)key * HD + c]), lowp) : 0.f;
+  int it = 0;  // the group's tiles so far
+  for (int j = grp; j < n_kv; j += GROUPS, ++it) {
+    cp_async_wait_all();
+    group_sync<GROUPS>(grp);  // tile j is in for the group; its tile before is consumed
+    if (j + GROUPS < n_kv) {
+      float* next = ring + ((it + 1) % kFStages) * 2 * SLAB;
+      stage_async<HD, kGroupThreads>(next, kb, (j + GROUPS) * kFRows, Sk, gt);
+      stage_async<HD, kGroupThreads>(next + SLAB, vb, (j + GROUPS) * kFRows, Sk, gt);
+      cp_async_commit();
     }
-    __syncthreads();
+    float* ks = ring + (it % kFStages) * 2 * SLAB;
+    float* vs = ks + SLAB;
+    if constexpr (LOWP) {  // k and v rounded to bf16 once they have landed
+      scale_tile<HD, kGroupThreads, true>(ks, 1.f, gt);
+      scale_tile<HD, kGroupThreads, true>(vs, 1.f, gt);
+      group_sync<GROUPS>(grp);
+    }
 
-    // S = Q K^T on this thread's rows ty + 16i and keys tx + 16jn
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) s[i][jn] = 0.f;
-#pragma unroll
-    for (int d = 0; d < HD; d += 4) {
-      float4 qf[4], kf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qf[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * ROW + d);
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
-        kf[jn] = *reinterpret_cast<const float4*>(ks + (tx + 16 * jn) * ROW + d);
+    // s for rows rw + ry + 4i and keys key0 + cx + 8jn
+    float s[4][8];
+    dot_tile<HD>(qs + (wrow + ry) * ROW, ks + cx * ROW, s);
+    const int key0 = j * kFRows;
+    if (key0 + kFRows > Sk || (causal && key0 + kFRows - 1 > rw + q_offset)) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jn = 0; jn < 4; ++jn) {
-          s[i][jn] = fmaf(qf[i].x, kf[jn].x, s[i][jn]);
-          s[i][jn] = fmaf(qf[i].y, kf[jn].y, s[i][jn]);
-          s[i][jn] = fmaf(qf[i].z, kf[jn].z, s[i][jn]);
-          s[i][jn] = fmaf(qf[i].w, kf[jn].w, s[i][jn]);
+        for (int jn = 0; jn < 8; ++jn) {
+          const int key = key0 + cx + 8 * jn;
+          if (key >= Sk || (causal && key > rw + ry + 4 * i + q_offset)) s[i][jn] = -INFINITY;
         }
     }
-
-    // online softmax per row; P goes to shared memory for the P V product
+    // online softmax; s becomes p. A row with every key of this tile masked
+    // keeps its max (>= -1e30), and its masked p are 2^-inf = 0.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty + 16 * i;
-      float mx = kNegInf;
+      float mx = s[i][0];
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        const int key = key0 + tx + 16 * jn;
-        const bool ok = key < Sk && (!causal || key <= row + q_offset);
-        s[i][jn] = ok ? s[i][jn] : kNegInf;
-        mx = fmaxf(mx, s[i][jn]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = expf(m[i] - m_new);
+      for (int jn = 1; jn < 8; ++jn) mx = fmaxf(mx, s[i][jn]);
+      const float mn = fmaxf(m[i], row_max8(mx));
+      const float corr = exp2_ftz((m[i] - mn) * kLog2e);
+      const float ml = mn * kLog2e;
       float sum = 0.f;
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        // keys past Sk exist only in this padded tile: they weigh exactly 0
-        const float p = key0 + tx + 16 * jn < Sk ? expf(s[i][jn] - m_new) : 0.f;
-        sum += p;
-        ps[(ty + 16 * i) * kPRow + tx + 16 * jn] = dot_in(p, lowp);
+      for (int jn = 0; jn < 8; ++jn) {
+        s[i][jn] = exp2_ftz(fmaf(s[i][jn], kLog2e, -ml));
+        sum += s[i][jn];
       }
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
+      l[i] = fmaf(l[i], corr, sum);
+      m[i] = mn;
 #pragma unroll
       for (int e = 0; e < DPT; ++e) acc[i][e] *= corr;
     }
-    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // O += P V, 32 keys at a time
+      exchange<LOWP>(xw, ry, cx, h, s);
+      acc_tile<HD>(xw + ry * kXRow, vs + h * kHalf * ROW + lane_col<HD>(cx), acc);
+    }
+  }
 
-    // O += P V on rows ty + 16i and head dims tx*DPT .. tx*DPT + DPT - 1
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pf[4];
+  if constexpr (GROUPS == 2) {
+    // group 1 hands its (m, l, acc) to the group 0 lane that holds the same
+    // rows and head dims, through its own ring (no copies are in flight)
+    float* rec = rings + kFStages * 2 * SLAB;  // [8 + 4 DPT][kGroupThreads]
+    __syncthreads();
+    if (grp == 1) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pf[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kPRow + kk);
+      for (int i = 0; i < 4; ++i) {
+        rec[i * kGroupThreads + gt] = m[i];
+        rec[(4 + i) * kGroupThreads + gt] = l[i];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float vv[DPT];
-        lds<DPT>(vs + (kk + u) * ROW + tx * DPT, vv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? pf[i].x : u == 1 ? pf[i].y : u == 2 ? pf[i].z : pf[i].w;
-#pragma unroll
-          for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
-        }
+        for (int e = 0; e < DPT; ++e) rec[(8 + i * DPT + e) * kGroupThreads + gt] = acc[i][e];
       }
     }
-  }
-
+    __syncthreads();
+    if (grp == 1) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row < Sq) {
-      const float lc = fmaxf(l[i], 1e-30f);
-      const float inv = 1.f / lc;
-      T* orow = o + (bh * Sq + row) * HD + tx * DPT;
+    for (int i = 0; i < 4; ++i) {
+      const float m1 = rec[i * kGroupThreads + gt];
+      const float mn = fmaxf(m[i], m1);
+      const float c0 = exp2_ftz((m[i] - mn) * kLog2e), c1 = exp2_ftz((m1 - mn) * kLog2e);
+      l[i] = fmaf(l[i], c0, rec[(4 + i) * kGroupThreads + gt] * c1);
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) store(orow + e, acc[i][e] * inv);
-      if (tx == 0) lse[bh * Sq + row] = m[i] + logf(lc);
+      for (int e = 0; e < DPT; ++e)
+        acc[i][e] = fmaf(acc[i][e], c0, rec[(8 + i * DPT + e) * kGroupThreads + gt] * c1);
+      m[i] = mn;
     }
   }
+
+  const size_t rows = bh * Sq;
+  const int col = lane_col<HD>(cx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lc = fmaxf(row_sum8(l[i]), 1e-30f);
+    const int row = rw + ry + 4 * i;
+    if (row >= Sq) continue;
+    const float inv = 1.f / lc;
+    float* orow = o + (rows + row) * HD + col;
+    if constexpr (HD >= 32) {
+#pragma unroll
+      for (int mm = 0; mm < HD / 32; ++mm)
+        *reinterpret_cast<float4*>(orow + 32 * mm) =
+            make_float4(acc[i][4 * mm] * inv, acc[i][4 * mm + 1] * inv,
+                        acc[i][4 * mm + 2] * inv, acc[i][4 * mm + 3] * inv);
+    } else {
+      *reinterpret_cast<float2*>(orow) = make_float2(acc[i][0] * inv, acc[i][1] * inv);
+    }
+    if (cx == 0) lse[rows + row] = m[i] + logf(lc);
+  }
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int BH, int Sq, int Sk, int causal,
-                      int q_offset, float scale, int lowp,
-                      cudaStream_t stream) {
-  constexpr size_t bytes = smem_floats(HD) * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, HD>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
-  // grid.y holds at most 65535 heads: larger B*H runs in chunks of heads,
-  // each launch with its base pointers advanced (the kernel body unchanged)
-  for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridY) {
-    const int n = BH - bh0 < kMaxGridY ? BH - bh0 : kMaxGridY;
-    const size_t qo = (size_t)bh0 * Sq * HD, ko = (size_t)bh0 * Sk * HD;
-    const dim3 grid((Sq + kBQ - 1) / kBQ, n);
-    kernel<<<grid, kThreads, bytes, stream>>>(
-        (const T*)q + qo, (const T*)k + ko, (const T*)v + ko, (T*)o + qo,
-        lse + (size_t)bh0 * Sq, Sq, Sk, causal, q_offset, scale, lowp);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+template <int HD, bool LOWP, int GROUPS>
+cudaError_t launch_ffma(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int BH, int Sq, int Sk, int causal, int q_offset, float scale,
+                        cudaStream_t stream) {
+  using F = Ffma<HD, GROUPS>;
+  auto kernel = flash_fwd_ffma<HD, LOWP, GROUPS>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((Sq + kFRows - 1) / kFRows) * BH;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, F::THREADS, F::SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, BH, Sq, Sk, causal,
+      q_offset, scale);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_t(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int BH, int Sq, int Sk, int hd, int causal,
-                     int q_offset, float scale, int lowp,
-                     cudaStream_t stream) {
+template <int HD, bool LOWP>
+cudaError_t launch_groups(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int BH, int Sq, int Sk, int causal, int q_offset, float scale,
+                          int groups, cudaStream_t stream) {
+  if (groups == 1)
+    return launch_ffma<HD, LOWP, 1>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, stream);
+  if constexpr (HD <= 64) {  // two groups' rings do not fit beside hd 128
+    if (groups == 2)
+      return launch_ffma<HD, LOWP, 2>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale,
+                                      stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool LOWP>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int BH, int Sq, int Sk, int hd, int causal, int q_offset, float scale,
+                       int groups, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_hd<T, 16>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, lowp, stream);
-    case 32: return launch_hd<T, 32>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, lowp, stream);
-    case 64: return launch_hd<T, 64>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, lowp, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, lowp, stream);
+    case 16: return launch_groups<16, LOWP>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, groups, stream);
+    case 32: return launch_groups<32, LOWP>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, groups, stream);
+    case 64: return launch_groups<64, LOWP>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, groups, stream);
+    case 128: return launch_groups<128, LOWP>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale, groups, stream);
     default: return cudaErrorInvalidValue;
   }
 }
-
 
 // ===========================================================================
 // Tensor-core kernel: bf16 inputs (lowp, SPLIT = false; or not, SPLIT = true)
@@ -343,11 +553,6 @@ constexpr int kStages = 2;                   // ring of K and V tiles
 constexpr int kConsumers = 128;              // one warpgroup
 constexpr int kTcThreads = kConsumers + 32;  // and one producer warp
 constexpr uint32_t kSlab = 64 * 128;         // bytes of [64 rows][64 bf16], 128-byte rows
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
@@ -478,14 +683,6 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
-}
-
-// 2^x on the special-function unit, results below 2^-126 flushed to zero
-// (a p that small changes no f32 sum it enters)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
@@ -816,10 +1013,11 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a shape the kernels were not built for (or a
 // tensor map that cannot be encoded). bf16 inputs run the tensor-core
-// kernel, f32 inputs the FFMA one.
+// kernel, f32 inputs the FFMA one with `groups` groups of warps a block (1,
+// or 2 at hd <= 64; the bf16 kernel ignores it).
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int B, int H, int Sq, int Sk, int hd, int causal, int q_offset,
-              float scale, int is_bf16, int lowp, int device, void* stream) {
+              float scale, int is_bf16, int lowp, int groups, int device, void* stream) {
   if (Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -828,9 +1026,12 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   if (is_bf16) {
     err = dispatch_tc(q, k, v, o, (float*)lse, B * H, Sq, Sk, hd, causal, q_offset, scale,
                       lowp == 0, s);
+  } else if (lowp) {
+    err = launch_f32<true>(q, k, v, o, (float*)lse, B * H, Sq, Sk, hd, causal, q_offset,
+                           scale, groups, s);
   } else {
-    err = launch_t<float>(q, k, v, o, (float*)lse, B * H, Sq, Sk, hd, causal,
-                          q_offset, scale, lowp, s);
+    err = launch_f32<false>(q, k, v, o, (float*)lse, B * H, Sq, Sk, hd, causal, q_offset,
+                            scale, groups, s);
   }
   return (int)err;
 }

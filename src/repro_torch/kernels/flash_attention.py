@@ -27,6 +27,11 @@ the reference's ``cdt`` does: bf16 inputs run the tensor-core kernel (TMA,
 kept f32 as a split pair of bf16 products; f32 inputs, with or without
 ``lowp``, run the f32 FFMA kernel. None of them falls back to another.
 
+Two launch plans are made here on the host, from shapes and the card's SM
+count only (``fwd_groups``, ``decode_paged_plan``), so that no launch reads
+a tensor back: the FFMA forward's groups of warps a block, and the paged
+decode's split of each row's keys across blocks.
+
 ``flash_attention_mha`` is differentiable: ``_FlashMHA`` is the
 counterpart of the JAX package's ``_flash_mha`` custom_vjp. Its forward runs
 ``flash_fwd`` and saves q, k, v, o and lse; its backward is
@@ -55,6 +60,9 @@ launches = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0,
             "flash_decode_spec": 0, "flash_decode_spec_paged": 0}
 
 FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims flash_{fwd,bwd}.cu are instantiated for
+FWD_ROWS = 64      # query rows of a flash_fwd block, and keys of its tiles
+DECODE_CHUNK = 64  # positions a flash_decode_paged block stages at once
+DECODE_ROWS = 4    # query rows of a flash_decode_paged block (a row group)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
@@ -80,7 +88,7 @@ def all_launches() -> dict:
 def _fwd_lib():
     lib = load_library("flash_fwd")
     lib.flash_fwd.argtypes = [_P, _P, _P, _P, _P] + [_I] * 7 + \
-        [ctypes.c_float, _I, _I, _I, _P]
+        [ctypes.c_float, _I, _I, _I, _I, _P]
     lib.flash_fwd.restype = _I
     return lib
 
@@ -101,8 +109,8 @@ def _decode_lib():
 @functools.cache
 def _decode_paged_lib():
     lib = load_library("flash_decode_paged")
-    lib.flash_decode_paged.argtypes = [_P] * 6 + [_I] * 8 + \
-        [ctypes.c_float, _I, _I, _I, _P]
+    lib.flash_decode_paged.argtypes = [_P] * 9 + [_I] * 8 + \
+        [ctypes.c_float] + [_I] * 5 + [_P]
     lib.flash_decode_paged.restype = _I
     lib.flash_decode_paged_smem_bytes.argtypes = [_I] * 4
     lib.flash_decode_paged_smem_bytes.restype = ctypes.c_longlong
@@ -126,6 +134,56 @@ def _spec_lib():
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = _I
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, queried once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fwd_block(block: int, n_q: int, BH: int) -> tuple:
+    """(query tile, b*h) of block ``block`` of the FFMA forward's 1-D grid of
+    ``n_q * BH`` blocks, as the kernel computes it: every head's last query
+    tile first, then the one before, so that the causal tiles with the most
+    KV tiles start first and the light ones fill in behind them."""
+    return n_q - 1 - block // BH, block % BH
+
+
+def fwd_groups(blocks: int, hd: int, sms: int) -> int:
+    """Groups of 4 warps in each block of the FFMA forward: 2, taking the
+    block's KV tiles alternately, for a grid that cannot give each SM two
+    blocks (and hd <= 64, where two groups' rings fit); else 1."""
+    return 2 if hd <= 64 and blocks < 2 * sms else 1
+
+
+def decode_paged_plan(T: int, bs: int, rows: int, sms: int) -> tuple:
+    """(splits, bps): each of ``rows`` (B*K*row groups) block rows of the
+    paged decode is cut into ``splits`` blocks of ``bps`` table entries, so
+    that a full cache gives each SM about four blocks. A block stages whole
+    pool blocks in chunks of ``DECODE_CHUNK`` positions, so a split holds a
+    whole number of chunks (where bs <= 64), and never less than one; a
+    table of one chunk, or enough rows, take one split (no partials)."""
+    per_chunk = max(1, DECODE_CHUNK // bs)  # pool blocks a chunk holds
+    n_chunks = -(-T // per_chunk)
+    splits = max(1, min(n_chunks, -(-4 * sms // max(rows, 1))))
+    bps = min(T, per_chunk * -(-n_chunks // splits))
+    return -(-T // bps), bps
+
+
+# per (device, stream): the paged decode's arrival counts, zero between calls
+_ARRIVALS: dict = {}
+
+
+def _arrivals(device: int, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counts for the paged decode's split
+    blocks: zero when made, and each call's last block of a row resets its
+    own. Kept per stream, so that calls on two streams never share one."""
+    buf = _ARRIVALS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=torch.device("cuda", device))
+        _ARRIVALS[(device, stream)] = buf
+    return buf
 
 
 def _check_no_grad(what: str, *tensors) -> None:
@@ -191,11 +249,12 @@ def _fwd_lse(q, k, v, causal: bool, q_offset: int, lowp: bool):
         return o, lse
     lib = _fwd_lib()
     device, stream = stream_args(q)
+    groups = fwd_groups(-(-Sq // FWD_ROWS) * B * H, hd, sm_count(device))
     rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        lse.data_ptr(), B, H, Sq, Sk, hd, int(bool(causal)),
                        int(q_offset), 1.0 / math.sqrt(hd),
-                       int(q.dtype == torch.bfloat16), int(lowp), device,
-                       stream)
+                       int(q.dtype == torch.bfloat16), int(lowp), groups,
+                       device, stream)
     check_launch(lib, rc, "flash_fwd")
     launches["flash_fwd"] += 1
     return o, lse
@@ -268,15 +327,16 @@ def _lengths(lengths, B: int, device) -> torch.Tensor:
     return lengths.to(torch.int32).expand(B).contiguous()
 
 
-def _table(block_table, B: int, num_blocks: int, device) -> torch.Tensor:
-    """(B, T) int32 block table on ``device``, clipped to [0, num_blocks-1]
-    as the reference clips it."""
+def _table(block_table, B: int, device) -> torch.Tensor:
+    """(B, T) int32 block table on ``device``. The reference clips it to
+    [0, num_blocks-1]; the plain versions need that done first, the paged
+    kernels clip each entry they read."""
     table = torch.as_tensor(block_table, device=device)
     if table.dim() != 2 or table.shape[0] != B or table.shape[1] < 1 or \
             table.dtype.is_floating_point:
         raise ValueError(f"block_table must be a (B={B}, T) int table, got "
                          f"{tuple(table.shape)} {table.dtype}")
-    return table.to(torch.int32).clamp(0, num_blocks - 1).contiguous()
+    return table.to(torch.int32).contiguous()
 
 
 def _check_decode_inputs(what: str, q, k, v) -> None:
@@ -359,9 +419,11 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
        p // block_size), clamped to T * block_size; rows with length 0
        produce zeros.
 
-    The kernel translates each position through the row's table, staged in
-    shared memory: identical math to ``flash_decode`` on the contiguous
-    cache the table describes. Returns (B, K, G, hdv).
+    The kernel splits each row's keys across blocks (``decode_paged_plan``),
+    each translating its table entries once; the last block of a row to
+    finish merges the splits' f32 partials. The math of ``flash_decode`` on
+    the contiguous cache the table describes, summed in another order.
+    Returns (B, K, G, hdv).
     """
     B, K, G, hd = q.shape
     NB, bs = k_pool.shape[0], k_pool.shape[1]
@@ -374,26 +436,37 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     _check_decode_inputs("flash_decode_paged", q, k_pool, v_pool)
     lowp = attn_bf16(lowp)
     lengths = _lengths(lengths, B, q.device)
-    table = _table(block_table, B, NB, q.device)
+    table = _table(block_table, B, q.device)
     if q.device.type == "cpu":
-        return ref_flash_decode_paged(q, k_pool, v_pool, table, lengths,
-                                      scale=scale, lowp=lowp)
+        return ref_flash_decode_paged(q, k_pool, v_pool, table.clamp(0, NB - 1),
+                                      lengths, scale=scale, lowp=lowp)
     T = table.shape[1]
     q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
     out = torch.empty((B, K, G, hdv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     lib = _decode_paged_lib()
-    _check_kernel_geometry(
-        "flash_decode_paged", lib.flash_decode_paged_smem_bytes(G, hd, hdv, T),
-        lib.flash_decode_paged_max_smem_bytes(), hd, hdv, k_pool,
-        f", G={G}, T={T}")
     device, stream = stream_args(q)
+    rows = B * K * -(-G // DECODE_ROWS)  # block rows: (b, kv head, row group)
+    splits, bps = decode_paged_plan(T, bs, rows, sm_count(device))
+    _check_kernel_geometry(
+        "flash_decode_paged",
+        lib.flash_decode_paged_smem_bytes(hd, hdv, bps, q.element_size()),
+        lib.flash_decode_paged_max_smem_bytes(), hd, hdv, k_pool,
+        f", T={T}")
+    # the splits' f32 partials (m and l, then acc), written before they are
+    # read: no fill
+    ws = [None, None, None]
+    if splits > 1:
+        ws = [torch.empty(B * K * splits * G * 2, dtype=torch.float32, device=q.device),
+              torch.empty(B * K * splits * G * hdv, dtype=torch.float32, device=q.device),
+              _arrivals(device, stream, rows)]
     rc = lib.flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, K, G, NB, bs, T, hd, hdv,
-        float(scale), int(q.dtype == torch.bfloat16), int(lowp), device,
-        stream)
+        lengths.data_ptr(), out.data_ptr(),
+        *(None if w is None else w.data_ptr() for w in ws), B, K, G, NB, bs, T, hd,
+        hdv, float(scale), splits, bps, int(q.dtype == torch.bfloat16),
+        int(lowp), device, stream)
     check_launch(lib, rc, "flash_decode_paged")
     launches["flash_decode_paged"] += 1
     return out
@@ -484,7 +557,7 @@ def flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
     _check_decode_inputs("flash_decode_spec_paged", q, k_pool, v_pool)
     lowp = attn_bf16(lowp)
     lengths = _lengths(lengths, B, q.device)
-    table = _table(block_table, B, NB, q.device)
+    table = _table(block_table, B, q.device).clamp(0, NB - 1)
     if q.device.type == "cpu":
         return ref_flash_decode_spec_paged(q, k_pool, v_pool, table, lengths,
                                            scale=scale, lowp=lowp)

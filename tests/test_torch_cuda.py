@@ -28,9 +28,9 @@ CASES = [(torch.float32, False), (torch.bfloat16, True)]
 # relative; the plain version's f32 sums and exp differ by less, so 1e-3
 # holds with room
 SPLIT = dict(rtol=1e-3, atol=1e-3)
-# the forward's three modes: f32 (FFMA kernel), bf16 with lowp and bf16
-# without it (tensor-core kernel, p split into bf16 pairs)
-FWD_MODES = CASES + [(torch.bfloat16, False)]
+# the forward's modes: f32 without and with lowp (FFMA kernel), bf16 with
+# lowp and bf16 without it (tensor-core kernel, p split into bf16 pairs)
+FWD_MODES = CASES + [(torch.bfloat16, False), (torch.float32, True)]
 FWD_CASES = [(64, 64, True, 0), (67, 64, True, 0), (37, 16, False, 0), (29, 32, True, 40),
              (70, 128, True, 0)]  # S, hd, causal, q_offset
 
@@ -58,12 +58,14 @@ def _assert_bf16_out_close(got, want, tol):
         f"{float(err.max()):.3g}")
 
 
-def _check_fwd(dtype, lowp, B, H, Sq, hd, causal, q_offset, seed):
-    """flash_fwd against the plain version on one seeded input, launched once."""
+def _check_fwd(dtype, lowp, B, H, Sq, hd, causal, q_offset, seed, Sk=None):
+    """flash_fwd against the plain version on one seeded input, launched once;
+    Sk defaults to Sq + q_offset."""
     dev = _device()
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, H, Sq, hd, generator=g, device=dev).to(dtype)
-    k, v = (torch.randn(B, H, Sq + q_offset, hd, generator=g, device=dev).to(dtype)
+    Sk = Sq + q_offset if Sk is None else Sk
+    k, v = (torch.randn(B, H, Sk, hd, generator=g, device=dev).to(dtype)
             for _ in range(2))
     before = fa.launches["flash_fwd"]
     o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal, q_offset=q_offset,
@@ -101,10 +103,52 @@ def test_flash_fwd_matches_plain_at_the_train_shape(dtype, lowp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,lowp", FWD_MODES)
 def test_flash_fwd_past_65535_heads(dtype, lowp):
-    """B*H = 65536 runs in every mode and matches the plain version: the
-    tensor-core kernel's 1-D grid takes it, and the FFMA kernel (b*h on
-    grid.y, at most 65535) runs in two chunks of heads."""
+    """B*H = 65536 runs in every mode and matches the plain version: both
+    kernels' 1-D grids over (query tile, b*h) take it in one launch."""
     _check_fwd(dtype, lowp, 1, 65536, 5, 16, True, 0, seed=65536)
+
+
+# the edges of the FFMA forward's tiles: 64 rows a block and keys a tile, 16
+# rows a warp, 32 keys an exchange round; the last is the serve prefill's
+FWD_EDGE_CASES = [  # Sq, Sk, causal, q_offset
+    (1, 1, True, 0),
+    (63, 63, True, 0),
+    (65, 65, False, 0),
+    (127, 127, True, 0),
+    (509, 509, True, 0),
+    (512, 512, False, 0),
+    (17, 100, True, 83),    # Sq != Sk, q_offset past the first tile
+    (33, 200, True, 167),
+    (65, 130, False, 0),
+    (256, 256, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,groups", [(16, 1), (16, 2), (32, 1), (32, 2), (64, 1), (64, 2),
+                                       (128, 1)])
+@pytest.mark.parametrize("Sq,Sk,causal,q_offset", FWD_EDGE_CASES)
+def test_flash_fwd_f32_at_the_tile_edges(hd, groups, Sq, Sk, causal, q_offset, monkeypatch):
+    """The f32 FFMA kernel at the edges of its tiles, in every head dim, with
+    one group of warps a block and with two (hd <= 64), whatever the grid's
+    size would choose."""
+    monkeypatch.setattr(fa, "fwd_groups", lambda *a: groups)
+    _check_fwd(torch.float32, False, 1, 3, Sq, hd, causal, q_offset, seed=Sq + hd, Sk=Sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,lowp", [(4, 32, 512, False), (1, 32, 256, False),
+                                        (1, 32, 509, True)])
+def test_flash_fwd_f32_is_deterministic(B, H, S, lowp):
+    """Two calls on the same inputs give the same bits: every sum runs in a
+    fixed order in one thread, and two groups merge in a fixed order."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn(B, H, S, 64, generator=g, device=dev) for _ in range(3))
+    first = fa.flash_attention_fwd_lse(q, k, v, causal=True, lowp=lowp)
+    second = fa.flash_attention_fwd_lse(q, k, v, causal=True, lowp=lowp)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -224,6 +268,71 @@ def test_flash_decode_paged_matches_plain(dtype, lowp, K, G, hd, hdv, bs, scale)
     assert fa.launches["flash_decode_paged"] == before + 1
 
 
+def _check_decode_paged(dtype, lowp, B, K, G, hd, hdv, bs, T, lens, seed, scale=None):
+    """flash_decode_paged against the plain version on one seeded input,
+    launched once (one count, whatever its split); returns the output."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, K, G, hd, generator=g, device=dev).to(dtype)
+    kp, vp, table = _pool_and_table(g, dev, dtype, B, K, hd, hdv, bs, T)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = fa.launches["flash_decode_paged"]
+    out = fa.flash_decode_paged(q, kp, vp, table, lens, scale=scale, lowp=lowp)
+    assert fa.launches["flash_decode_paged"] == before + 1
+    want = ref.ref_flash_decode_paged(q, kp, vp, table, lens, scale=scale, lowp=lowp)
+    torch.testing.assert_close(out.float(), want.float(), **(BF16 if lowp else F32))
+    assert not out[lens == 0].any(), "a length-0 row must return zeros"
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", CASES)
+def test_flash_decode_paged_at_the_serve_shape(dtype, lowp):
+    """The paged serve run's shape: B8 K8 G4 hd64, 64 blocks of 16 a row,
+    ragged lengths from 0 to past the capacity, split across blocks."""
+    bs, T = 16, 64
+    assert fa.decode_paged_plan(T, bs, 8 * 8, 132)[0] > 1
+    _check_decode_paged(dtype, lowp, 8, 8, 4, 64, 64, bs, T,
+                        [0, 1, 193, 300, 511, 700, 1024, 1030], seed=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", CASES)
+@pytest.mark.parametrize("K,G,hd,hdv,bs,T", [(8, 4, 64, 64, 16, 512),
+                                             (2, 12, 16, 128, 5, 512),
+                                             (2, 5, 32, 16, 5, 97),
+                                             (8, 4, 64, 64, 16, 1)])
+def test_flash_decode_paged_with_many_splits(dtype, lowp, K, G, hd, hdv, bs, T):
+    """Long tables cut into many splits (bs 5: a 60-position chunk that no
+    64-wide tile would align with), and T = 1 (one split, no partials), at
+    lengths 0, 1, one below, at and one past a split edge, at the capacity
+    and past it."""
+    dev = _device()
+    B, cap = 7, bs * T
+    splits, bps = fa.decode_paged_plan(T, bs, B * K * -(-G // fa.DECODE_ROWS),
+                                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (splits > 1) == (T > 1)
+    edge = min(bps * bs, cap)
+    lens = [0, 1, edge - 1, edge, min(edge + 1, cap), cap, cap + 9]
+    _check_decode_paged(dtype, lowp, B, K, G, hd, hdv, bs, T, lens, seed=T + bs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 512])
+def test_flash_decode_paged_is_deterministic(T):
+    """Two calls give the same bits: each split sums in a fixed order, and
+    the merge takes the splits in order (the atomic count of arrivals picks
+    which block merges, not the order)."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(T)
+    B, K, G, hd, bs = 8, 8, 4, 64, 16
+    q = torch.randn(B, K, G, hd, generator=g, device=dev)
+    kp, vp, table = _pool_and_table(g, dev, torch.float32, B, K, hd, hd, bs, T)
+    lens = torch.randint(0, bs * T + 2, (B,), generator=g, device=dev, dtype=torch.int32)
+    first = fa.flash_decode_paged(q, kp, vp, table, lens)
+    assert torch.equal(first, fa.flash_decode_paged(q, kp, vp, table, lens))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,lowp", CASES)
 @pytest.mark.parametrize("paged", [False, True])
@@ -287,8 +396,9 @@ def test_decode_wrappers_refuse_what_the_kernels_do_not_take():
                                     "flash_decode_spec", "flash_decode_spec_paged"])
 def test_decode_kernels_past_65535_rows(kernel, dtype, lowp):
     """B = 65536 with a short cache runs and matches the plain version: the
-    decode grids put b on grid.y, so the launch goes in two chunks of rows,
-    one launch counted per call."""
+    contiguous and speculative grids put b on grid.y, so their launch goes
+    in two chunks of rows; the paged decode's grid is 1-D. One launch is
+    counted per call."""
     dev = _device()
     g = torch.Generator(device=dev).manual_seed(65536)
     B, K, G, hd, bs, T, S = 65536, 1, 2, 16, 4, 2, 2

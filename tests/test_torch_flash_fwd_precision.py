@@ -24,6 +24,15 @@ with keys no row sees) and f32 arrays, so that its o comes back in f32.
     rounding point. One is the no-``lowp`` route (bf16 q.k unscaled, then
     scale on s); the other rounds the f32 q to bf16 before scaling it.
 
+(d) The f32 FFMA kernel (f32 inputs, with and without ``lowp``): a torch
+    emulation of its decomposition (64-row blocks in the launch order of
+    ``fwd_block``, the heaviest causal tiles first; one or two groups of
+    warps taking the KV tiles alternately and merging at the end; an online
+    softmax in the log2 domain, p = 2^(s log2 e - m log2 e)) matches JAX's
+    f32 route within ``F32`` (2e-5), and its ``lowp`` route within (a)'s
+    bounds. The host plan helpers (``fwd_block``, ``fwd_groups``) are
+    checked on their own.
+
 Inputs are drawn with numpy from a seed and fed to both packages.
 """
 import math
@@ -35,6 +44,7 @@ import torch
 
 from repro.kernels import flash_attention as jfa
 from repro.kernels.backend import divisor_block
+from repro_torch.kernels import flash_attention as tfa
 
 U = 2.0 ** -24      # f32 unit roundoff
 SPLIT = 2.0 ** -16  # what the hi/lo split leaves of each element
@@ -193,3 +203,124 @@ def test_lowp_rounding_point_is_visible(Sq, Sk, hd, causal, q_offset):
     for route in ("unscaled", "round_q_first"):
         _, wrong, _ = _emulate(*args, route=route, **kw)
         assert bool(((wrong - jl).abs() > bound).any()), f"route {route} fits the bound"
+
+
+# ---------------------------------------------------------------------------
+# (d) the f32 FFMA kernel
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+F32 = dict(rtol=2e-5, atol=2e-5)
+
+
+def _emulate_ffma(q, k, v, *, causal: bool, q_offset: int, lowp: bool, groups: int):
+    """(o, lse) as flash_fwd_ffma computes them: a block of 64 query rows at
+    a time in launch order; group g of ``groups`` takes KV tiles g, g +
+    groups, ... with its own online softmax (f32 m, l, acc; p = 2^(s log2 e
+    - m log2 e), masked keys -inf, p into P V rounded to bf16 under lowp);
+    the groups merge in order at the end."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    a = q.reshape(B * H, Sq, hd) * (1.0 / math.sqrt(hd))
+    kc, vc = k.reshape(B * H, Sk, hd), v.reshape(B * H, Sk, hd)
+    if lowp:
+        a, kc, vc = _bf16(a), _bf16(kc), _bf16(vc)
+    n_q, BH = -(-Sq // TILE), B * H
+    o = torch.empty(BH, Sq, hd)
+    lse = torch.empty(BH, Sq)
+    for block in range(n_q * BH):
+        tile, bh = tfa.fwd_block(block, n_q, BH)
+        r0, r1 = tile * TILE, min(tile * TILE + TILE, Sq)
+        n_kv = -(-Sk // TILE)
+        if causal:
+            last = r1 - 1 + q_offset
+            n_kv = 0 if last < 0 else min(n_kv, last // TILE + 1)
+        rows = torch.arange(r0, r1)[:, None]
+        states = []
+        for grp in range(groups):
+            m = torch.full((r1 - r0,), NEG_INF)
+            l = torch.zeros(r1 - r0)
+            acc = torch.zeros(r1 - r0, hd)
+            for j in range(grp, n_kv, groups):
+                keys = torch.arange(j * TILE, min(j * TILE + TILE, Sk))
+                s = a[bh, r0:r1] @ kc[bh, keys].T
+                if causal:
+                    s = torch.where(keys[None, :] <= rows + q_offset, s,
+                                    torch.full_like(s, -math.inf))
+                mn = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2((m - mn) * LOG2E)
+                p = torch.exp2(s * LOG2E - (mn * LOG2E)[:, None])
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[:, None] + (_bf16(p) if lowp else p) @ vc[bh, keys]
+                m = mn
+            states.append((m, l, acc))
+        m, l, acc = states[0]
+        for m1, l1, acc1 in states[1:]:
+            mn = torch.maximum(m, m1)
+            c0, c1 = torch.exp2((m - mn) * LOG2E), torch.exp2((m1 - mn) * LOG2E)
+            l, acc, m = l * c0 + l1 * c1, acc * c0[:, None] + acc1 * c1[:, None], mn
+        lc = l.clamp_min(1e-30)
+        o[bh, r0:r1] = acc / lc[:, None]
+        lse[bh, r0:r1] = m + torch.log(lc)
+    return o.reshape(B, H, Sq, hd), lse.reshape(B, H, Sq)
+
+
+def _f32_inputs(seed, Sq, Sk, hd):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, 2, Sq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 2, Sk, hd)).astype(np.float32) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("Sq,Sk,hd,causal,q_offset", CASES)
+def test_ffma_emulation_matches_jax(Sq, Sk, hd, causal, q_offset, groups):
+    q, k, v = _f32_inputs(Sq + Sk + hd + 3, Sq, Sk, hd)
+    jo, jl = _jax_fwd(q, k, v, causal=causal, q_offset=q_offset, lowp=False)
+    o, lse = _emulate_ffma(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                           q_offset=q_offset, lowp=False, groups=groups)
+    torch.testing.assert_close(o, jo, **F32)
+    torch.testing.assert_close(lse, jl, **F32)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("Sq,Sk,hd,causal,q_offset", CASES)
+def test_ffma_lowp_emulation_matches_jax(Sq, Sk, hd, causal, q_offset, groups):
+    """Under lowp one group of warps keeps the tensor-core kernel's rounding
+    points on f32 inputs, so (a)'s bounds hold for it. Two groups round p
+    against each group's own running max, as JAX would with other tiles: o
+    within one bf16 unit of p |v| / l (the BF16 tolerance, 5e-2, of
+    tests/test_kernels.py), lse, which sums the unrounded p, within (a)'s."""
+    q, k, v = _inputs(Sq + Sk + hd + 4, Sq, Sk, hd, bf16_q=False)
+    jo, jl = _jax_fwd(q, k, v, causal=causal, q_offset=q_offset, lowp=True)
+    args = tuple(map(torch.from_numpy, (q, k, v)))
+    o, lse = _emulate_ffma(*args, causal=causal, q_offset=q_offset, lowp=True, groups=groups)
+    _, _, b = _emulate(*args, causal=causal, q_offset=q_offset, lowp=True)
+    _check("lse", (lse - jl).abs(), _lse_bound(lse, b))
+    if groups == 1:
+        _check("o", (o - jo).abs(), _lowp_o_bound(b))
+    else:
+        torch.testing.assert_close(o, jo, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("n_q,BH", [(1, 1), (8, 32), (8, 128), (3, 5), (1, 65536)])
+def test_fwd_block_order_is_heaviest_first(n_q, BH):
+    """Every (query tile, b*h) exactly once, and no causal block with more KV
+    tiles launches after one with fewer."""
+    blocks = [tfa.fwd_block(b, n_q, BH) for b in range(n_q * BH)]
+    assert sorted(blocks) == [(t, h) for t in range(n_q) for h in range(BH)]
+    tiles = [t for t, _ in blocks]  # a causal block of tile t has t + 1 KV tiles
+    assert tiles == sorted(tiles, reverse=True)
+
+
+@pytest.mark.parametrize("blocks,hd,sms,want", [
+    (96, 64, 132, 2),     # B1 H32 S 192: the serve prefills
+    (160, 64, 132, 2),    # S 320
+    (256, 64, 132, 2),    # S 512: 256 blocks, 264 slots of two an SM
+    (264, 64, 132, 1),
+    (1024, 64, 132, 1),   # the train step, B4 S512
+    (96, 128, 132, 1),    # hd 128: two groups' rings do not fit
+    (4, 16, 132, 2),
+])
+def test_fwd_groups(blocks, hd, sms, want):
+    assert tfa.fwd_groups(blocks, hd, sms) == want
