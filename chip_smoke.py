@@ -106,8 +106,10 @@ Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 also holds the three paged and speculative kernels against
 their plain versions (B8 K8 G4 hd64, 64 blocks of 16, a shuffled table with
 out-of-range entries, ragged lengths including 0 and past the capacity,
-speculative windows of S = 2 and 5; the paged decode also at 512 blocks a
-row, in the splits its plan chose); their library yardsticks are one SDPA
+speculative windows of S = 2 and 5; the paged decode and the speculative
+kernels also at 512 blocks a row (Smax 8192), and the speculative kernels
+at S = 17, 68 rows, each in the row blocks and splits its plan chose);
+their library yardsticks are one SDPA
 call with a boolean mask (speculative, contiguous) and a gather followed by
 SDPA (the paged two, two calls). It holds the depthwise kernel at every
 stride-1 depthwise layer shape of MobileNetV2 and ShuffleNetV2 at batch 128
@@ -521,68 +523,90 @@ def check_flash_decode_paged(fa, ref, gather):
     return checks
 
 
+SPEC_LONG_BASES = [0, 1, 193, 1030, 2900, 5000, 8189, 8192]  # T = 512 (Smax 8192)
+
+
 def check_flash_decode_spec(fa, ref, gather, paged: bool):
     """Speculative verify at the serve runs' shape, S = 5 (draft depth 4,
-    the serve runs' window) and S = 2: base lengths including 0, a window
-    past the capacity and an idle slot at it; contiguous Smax = 1024 or 64
-    blocks of 16."""
+    the serve runs' window) and S = 2, in f32 and bf16 with lowp: base
+    lengths including 0, a window past the capacity and an idle slot at
+    it; contiguous Smax = 1024 or 64 blocks of 16. Then in f32 at a long
+    cache (T = 512, Smax = 8192, bases up to it) and at S = 17, R = 68 rows,
+    past the parent's 64-row ceiling (skipped on a tree that refuses it:
+    one without ``spec_plan``). Each check records the tree's row blocks and
+    splits (the parent's: one split, groups of 8 rows)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(5 + paged)
-    B, K, G, hd, bs, T = (DEC[k] for k in ("B", "K", "G", "hd", "bs", "T"))
-    cap = bs * T
-    base_list = [0, 1, 193, 300, 511, 700, 1021, 1024]
-    base = torch.tensor(base_list, dtype=torch.int32, device="cuda")
+    B, K, G, hd, bs = (DEC[k] for k in ("B", "K", "G", "hd", "bs"))
+    base_serve = [0, 1, 193, 300, 511, 700, 1021, 1024]
     name = "flash_decode_spec_paged" if paged else "flash_decode_spec"
     kernel = getattr(fa, name)
     plain = getattr(ref, "ref_" + name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     checks = []
-    for S in (5, 2):
-        for dtype, lowp in [(torch.float32, False), (torch.bfloat16, True)]:
-            q = torch.randn(B, K, S, G, hd, generator=g, device="cuda").to(dtype)
-            if paged:
-                kp, vp, table = paged_inputs(g, dtype, B, K, hd, bs, T)
-                args = (q, kp, vp, table, base)
-            else:
-                kc, vc = (torch.randn(B, cap, K, hd, generator=g,
-                                      device="cuda").to(dtype) for _ in range(2))
-                args = (q, kc, vc, base)
-            out = kernel(*args, lowp=lowp)
-            want = plain(*args, lowp=lowp)
-            torch.cuda.synchronize()
-            # SDPA over (B, H, S, hd) queries, head h = k*G + g, with the
-            # per-row causal window as a boolean (B, 1, S, cap) mask
-            qh = q.permute(0, 1, 3, 2, 4).reshape(B, K * G, S, hd)
-            limit = (base[:, None].long() + torch.arange(S, device="cuda") + 1
-                     ).clamp(max=cap)
-            mask = (torch.arange(cap, device="cuda")[None, None, :]
-                    < limit[:, :, None])[:, None]
-            if paged:
-                def library():
-                    kh = gather(kp, table).transpose(1, 2)
-                    vh = gather(vp, table).transpose(1, 2)
-                    return F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=mask, enable_gqa=True)
-                calls = "gather + SDPA, two calls"
-            else:
-                kh, vh = (x.transpose(1, 2) for x in (kc, vc))
+    for S, T, dtype, lowp in [(5, DEC["T"], torch.float32, False),
+                              (5, DEC["T"], torch.bfloat16, True),
+                              (2, DEC["T"], torch.float32, False),
+                              (2, DEC["T"], torch.bfloat16, True),
+                              (5, 512, torch.float32, False),
+                              (17, DEC["T"], torch.float32, False)]:
+        if S * G > 64 and not hasattr(fa, "spec_plan"):
+            continue
+        cap = bs * T
+        base_list = base_serve if T == DEC["T"] else SPEC_LONG_BASES
+        base = torch.tensor(base_list, dtype=torch.int32, device="cuda")
+        if hasattr(fa, "spec_plan"):
+            n_rb, splits, _ = fa.spec_plan(B, K, S * G, T if paged else cap // 64,
+                                           bs if paged else 64, sms)
+        else:
+            n_rb, splits = -(-S * G // 8), 1
+        q = torch.randn(B, K, S, G, hd, generator=g, device="cuda").to(dtype)
+        if paged:
+            kp, vp, table = paged_inputs(g, dtype, B, K, hd, bs, T)
+            args = (q, kp, vp, table, base)
+        else:
+            kc, vc = (torch.randn(B, cap, K, hd, generator=g,
+                                  device="cuda").to(dtype) for _ in range(2))
+            args = (q, kc, vc, base)
+        out = kernel(*args, lowp=lowp)
+        want = plain(*args, lowp=lowp)
+        torch.cuda.synchronize()
+        # SDPA over (B, H, S, hd) queries, head h = k*G + g, with the
+        # per-row causal window as a boolean (B, 1, S, cap) mask
+        qh = q.permute(0, 1, 3, 2, 4).reshape(B, K * G, S, hd)
+        limit = (base[:, None].long() + torch.arange(S, device="cuda") + 1
+                 ).clamp(max=cap)
+        mask = (torch.arange(cap, device="cuda")[None, None, :]
+                < limit[:, :, None])[:, None]
+        if paged:
+            def library():
+                kh = gather(kp, table).transpose(1, 2)
+                vh = gather(vp, table).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, enable_gqa=True)
+            calls = "gather + SDPA, two calls"
+        else:
+            kh, vh = (x.transpose(1, 2) for x in (kc, vc))
 
-                def library():
-                    return F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=mask, enable_gqa=True)
-                calls = "SDPA with a boolean mask, one call"
-            elt = q.element_size()
-            live = sum(min(n + S, cap) for n in base_list)       # keys read
-            pairs = int(limit.sum()) * K * G                     # (row, key) pairs
-            nbytes = live * K * 2 * hd * elt + 2 * B * K * S * G * hd * elt + B * 4 \
-                + (B * T * 4 if paged else 0)
-            checks.append(kernel_check(
-                f"{name} S={S}", out, want, BF16_TOL if lowp else F32_TOL,
-                shape=[B, K, S, G, hd] + ([bs, T] if paged else [cap]),
-                lengths=base_list, dtype=str(dtype).replace("torch.", ""),
-                ms=time_ms(lambda: kernel(*args, lowp=lowp)),
-                plain_ms=time_ms(lambda: plain(*args, lowp=lowp)),
-                library_ms=time_ms(library), library_calls=calls,
-                nbytes=nbytes, flops=pairs * 4 * hd, lowp=lowp))
+            def library():
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, enable_gqa=True)
+            calls = "SDPA with a boolean mask, one call"
+        elt = q.element_size()
+        live = sum(min(n + S, cap) for n in base_list)       # keys read
+        pairs = int(limit.sum()) * K * G                     # (row, key) pairs
+        nbytes = live * K * 2 * hd * elt + 2 * B * K * S * G * hd * elt + B * 4 \
+            + (B * T * 4 if paged else 0)
+        checks.append(kernel_check(
+            f"{name} S={S} T={T} row_blocks={n_rb} splits={splits}", out, want,
+            BF16_TOL if lowp else F32_TOL,
+            shape=[B, K, S, G, hd] + ([bs, T] if paged else [cap]),
+            lengths=base_list, row_blocks=n_rb, splits=splits,
+            dtype=str(dtype).replace("torch.", ""),
+            ms=time_ms(lambda: kernel(*args, lowp=lowp)),
+            plain_ms=time_ms(lambda: plain(*args, lowp=lowp)),
+            library_ms=time_ms(library), library_calls=calls,
+            nbytes=nbytes, flops=pairs * 4 * hd, lowp=lowp))
     return checks
 
 
@@ -858,8 +882,11 @@ def streams_of(done):
 
 def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
                           spec_phase: bool = True):
-    """Phases 9-11 (9-10 without ``spec_phase``). Returns (the serve_paged
-    and serve_spec JSON objects, each new path's launch counts)."""
+    """Phases 9-11 (9-10 without ``spec_phase``). Phase 11's streams are
+    held to ``contig_streams`` (phase 4's), or, where that is None, to a
+    contiguous pallas run of the same requests made here. Returns (the
+    serve_paged and serve_spec JSON objects, each new path's launch
+    counts)."""
     model = build_model(cfg, impl="pallas", device="cuda")
     params = model.init(model.generator(0))
     naive = build_model(cfg, impl="naive", device="cuda")
@@ -910,6 +937,8 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
 
     # -- phase 11: speculative, contiguous and paged --------------------------
     spec = {}
+    if spec_phase and contig_streams is None:
+        contig_streams = run(None, model, reqs)[0]
     for path, kw, kname in (("spec_contig", {}, "flash_decode_spec"),
                             ("spec_paged", paged_kw, "flash_decode_spec_paged")
                             )[:2 if spec_phase else 0]:

@@ -27,10 +27,11 @@ the reference's ``cdt`` does: bf16 inputs run the tensor-core kernel (TMA,
 kept f32 as a split pair of bf16 products; f32 inputs, with or without
 ``lowp``, run the f32 FFMA kernel. None of them falls back to another.
 
-Two launch plans are made here on the host, from shapes and the card's SM
-count only (``fwd_groups``, ``decode_paged_plan``), so that no launch reads
-a tensor back: the FFMA forward's groups of warps a block, and the paged
-decode's split of each row's keys across blocks.
+Launch plans are made here on the host, from shapes and the card's SM
+count only (``fwd_groups``, ``decode_paged_plan``, ``spec_plan``), so that
+no launch reads a tensor back: the FFMA forward's groups of warps a block,
+and the split of each row's keys across blocks in the paged decode and the
+speculative verify (which also cuts its S*G rows into row blocks).
 
 ``flash_attention_mha`` is differentiable: ``_FlashMHA`` is the
 counterpart of the JAX package's ``_flash_mha`` custom_vjp. Its forward runs
@@ -63,6 +64,7 @@ FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims flash_{fwd,bwd}.cu are instantiat
 FWD_ROWS = 64      # query rows of a flash_fwd block, and keys of its tiles
 DECODE_CHUNK = 64  # positions a flash_decode_paged block stages at once
 DECODE_ROWS = 4    # query rows of a flash_decode_paged block (a row group)
+SPEC_ROWS = 24     # query rows of a flash_decode_spec block (a row block)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
@@ -122,17 +124,16 @@ def _decode_paged_lib():
 @functools.cache
 def _spec_lib():
     lib = load_library("flash_decode_spec")
-    lib.flash_decode_spec.argtypes = [_P] * 5 + [_I] * 7 + \
-        [ctypes.c_float, _I, _I, _I, _P]
+    lib.flash_decode_spec.argtypes = [_P] * 7 + [_I] * 7 + \
+        [ctypes.c_float] + [_I] * 6 + [_P]
     lib.flash_decode_spec.restype = _I
-    lib.flash_decode_spec_paged.argtypes = [_P] * 6 + [_I] * 9 + \
-        [ctypes.c_float, _I, _I, _I, _P]
+    lib.flash_decode_spec_paged.argtypes = [_P] * 8 + [_I] * 9 + \
+        [ctypes.c_float] + [_I] * 6 + [_P]
     lib.flash_decode_spec_paged.restype = _I
-    lib.flash_decode_spec_smem_bytes.argtypes = [_I] * 4
+    lib.flash_decode_spec_smem_bytes.argtypes = [_I] * 3
     lib.flash_decode_spec_smem_bytes.restype = ctypes.c_longlong
-    for fn in ("flash_decode_spec_max_smem_bytes", "flash_decode_spec_max_rows"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = _I
+    lib.flash_decode_spec_max_smem_bytes.argtypes = []
+    lib.flash_decode_spec_max_smem_bytes.restype = _I
     return lib
 
 
@@ -171,14 +172,28 @@ def decode_paged_plan(T: int, bs: int, rows: int, sms: int) -> tuple:
     return -(-T // bps), bps
 
 
-# per (device, stream): the paged decode's arrival counts, zero between calls
+def spec_plan(B: int, K: int, R: int, T: int, bs: int, sms: int) -> tuple:
+    """(row blocks, splits, bps) of a speculative verify of ``R`` = S*G rows
+    a (b, kv head): the rows cut into row blocks of ``SPEC_ROWS``, and the
+    keys of each into ``decode_paged_plan``'s splits of ``bps`` table
+    entries. The paged cache passes its table (T entries of ``bs``
+    positions); the contiguous cache of Smax positions is read as a table of
+    ``ceil(Smax / 64)`` blocks of ``DECODE_CHUNK`` positions."""
+    n_rb = -(-R // SPEC_ROWS)
+    return (n_rb,) + decode_paged_plan(T, bs, B * K * n_rb, sms)
+
+
+# per (device, stream): the split decode kernels' arrival counts, zero
+# between calls
 _ARRIVALS: dict = {}
 
 
 def _arrivals(device: int, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` int32 arrival counts for the paged decode's split
-    blocks: zero when made, and each call's last block of a row resets its
-    own. Kept per stream, so that calls on two streams never share one."""
+    """At least ``n`` int32 arrival counts for the split blocks of the paged
+    decode and the speculative verify: zero when made, and each call's last
+    block of a row resets its own, so calls of both kernels on one stream
+    share the buffer in turn. Kept per stream, so that calls on two streams
+    never share one."""
     buf = _ARRIVALS.get((device, stream))
     if buf is None or buf.numel() < n:
         buf = torch.zeros(n, dtype=torch.int32, device=torch.device("cuda", device))
@@ -472,15 +487,45 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     return out
 
 
-def _spec_geometry(what: str, lib, S: int, G: int, hd: int, hdv: int, T: int,
-                   k) -> None:
-    rows = lib.flash_decode_spec_max_rows()
-    if S * G > rows:
-        raise ValueError(f"{what} verifies at most {rows} rows (S*G) per "
-                         f"block; got S={S} x G={G} = {S * G}")
-    _check_kernel_geometry(what, lib.flash_decode_spec_smem_bytes(S * G, hd, hdv, T),
-                           lib.flash_decode_spec_max_smem_bytes(), hd, hdv, k,
-                           f", S*G={S * G}" + (f", T={T}" if T else ""))
+def _spec_launch(what: str, q, k, v, table, lengths, scale: float,
+                 lowp: bool) -> torch.Tensor:
+    """Launch ``flash_decode_spec`` (``table`` None: k, v a contiguous
+    cache) or ``flash_decode_spec_paged`` on CUDA tensors: its plan, the
+    splits' f32 workspace and the arrival counts. Returns (B, K, S, G, hdv)."""
+    B, K, S, G, hd = q.shape
+    hdv = v.shape[-1]
+    paged = table is not None
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty((B, K, S, G, hdv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _spec_lib()
+    device, stream = stream_args(q)
+    R, rb = S * G, SPEC_ROWS
+    if paged:
+        T, bs = table.shape[1], k.shape[1]
+    else:
+        T, bs = -(-k.shape[1] // DECODE_CHUNK), DECODE_CHUNK
+    n_rb, splits, bps = spec_plan(B, K, R, T, bs, sm_count(device))
+    _check_kernel_geometry(
+        what, lib.flash_decode_spec_smem_bytes(hd, hdv, q.element_size()),
+        lib.flash_decode_spec_max_smem_bytes(), hd, hdv, k)
+    ws = arrivals = None
+    if splits > 1:  # each split's f32 partial, written before it is read: no fill
+        ws = torch.empty(B * K * n_rb * splits * rb * (2 + hdv), dtype=torch.float32,
+                         device=q.device)
+        arrivals = _arrivals(device, stream, B * K * n_rb)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()] + \
+        ([table.data_ptr()] if paged else []) + \
+        [lengths.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+         None if arrivals is None else arrivals.data_ptr()]
+    dims = [B, K, S, G] + ([k.shape[0], bs, T] if paged else [k.shape[1]]) + [hd, hdv]
+    fn = lib.flash_decode_spec_paged if paged else lib.flash_decode_spec
+    rc = fn(*ptrs, *dims, float(scale), rb, splits, bps,
+            int(q.dtype == torch.bfloat16), int(lowp), device, stream)
+    check_launch(lib, rc, what)
+    launches[what] += 1
+    return out
 
 
 def flash_decode_spec(q, k, v, lengths, *, scale: Optional[float] = None,
@@ -496,9 +541,12 @@ def flash_decode_spec(q, k, v, lengths, *, scale: Optional[float] = None,
        position qi of row b attends cache positions < lengths[b] + qi + 1,
        clamped to Smax.
 
-    One block per (b, KV head) verifies all S positions at once, with the
-    causal mask applied per row (r = qi*G + g) inside the key chunks; S*G is
-    at most the kernel's row ceiling (64). Returns (B, K, S, G, hdv).
+    The kernel cuts the S*G rows of each (b, KV head) into row blocks of
+    ``SPEC_ROWS`` rows, each reading its keys once, and splits
+    those keys across blocks (``spec_plan``), with the causal mask applied
+    per row (r = qi*G + g) inside the key chunks; the last block of a row
+    block to finish merges the splits' f32 partials. Any S*G is taken (no
+    row ceiling), as in the reference. Returns (B, K, S, G, hdv).
     Serving path only (no gradient).
     """
     B, K, S, G, hd = q.shape
@@ -514,21 +562,7 @@ def flash_decode_spec(q, k, v, lengths, *, scale: Optional[float] = None,
     lengths = _lengths(lengths, B, q.device)
     if q.device.type == "cpu":
         return ref_flash_decode_spec(q, k, v, lengths, scale=scale, lowp=lowp)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((B, K, S, G, hdv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib = _spec_lib()
-    _spec_geometry("flash_decode_spec", lib, S, G, hd, hdv, 0, k)
-    device, stream = stream_args(q)
-    rc = lib.flash_decode_spec(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               lengths.data_ptr(), out.data_ptr(), B, K, S, G,
-                               Smax, hd, hdv, float(scale),
-                               int(q.dtype == torch.bfloat16), int(lowp),
-                               device, stream)
-    check_launch(lib, rc, "flash_decode_spec")
-    launches["flash_decode_spec"] += 1
-    return out
+    return _spec_launch("flash_decode_spec", q, k, v, None, lengths, scale, lowp)
 
 
 def flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
@@ -544,7 +578,9 @@ def flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
     lengths: (B,) int32 BASE valid counts, as in ``flash_decode_spec``;
        limits are clamped to T * block_size.
 
-    Returns (B, K, S, G, hdv).
+    The kernel of ``flash_decode_spec`` with each split a range of whole
+    pool blocks, each chunk's positions translated through the table as it
+    is staged; any S*G is taken. Returns (B, K, S, G, hdv).
     """
     B, K, S, G, hd = q.shape
     NB, bs = k_pool.shape[0], k_pool.shape[1]
@@ -557,23 +593,9 @@ def flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
     _check_decode_inputs("flash_decode_spec_paged", q, k_pool, v_pool)
     lowp = attn_bf16(lowp)
     lengths = _lengths(lengths, B, q.device)
-    table = _table(block_table, B, q.device).clamp(0, NB - 1)
+    table = _table(block_table, B, q.device)
     if q.device.type == "cpu":
-        return ref_flash_decode_spec_paged(q, k_pool, v_pool, table, lengths,
-                                           scale=scale, lowp=lowp)
-    T = table.shape[1]
-    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
-    out = torch.empty((B, K, S, G, hdv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib = _spec_lib()
-    _spec_geometry("flash_decode_spec_paged", lib, S, G, hd, hdv, T, k_pool)
-    device, stream = stream_args(q)
-    rc = lib.flash_decode_spec_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, K, S, G, NB, bs, T, hd, hdv,
-        float(scale), int(q.dtype == torch.bfloat16), int(lowp), device,
-        stream)
-    check_launch(lib, rc, "flash_decode_spec_paged")
-    launches["flash_decode_spec_paged"] += 1
-    return out
+        return ref_flash_decode_spec_paged(q, k_pool, v_pool, table.clamp(0, NB - 1),
+                                           lengths, scale=scale, lowp=lowp)
+    return _spec_launch("flash_decode_spec_paged", q, k_pool, v_pool, table, lengths,
+                        scale, lowp)

@@ -87,8 +87,10 @@ def decode_attention_spec(q, k, v, lengths):
     hd[v]) cache buffers; lengths: (B,) or scalar BASE valid counts (before
     the drafts). Draft position qi attends cache positions
     < lengths[b] + qi + 1 — causal inside the verify block. One kernel call
-    verifies all S positions; the cache bytes are streamed once per KV head
-    per group of up to 8 rows.
+    verifies all S positions; the keys of each KV head are split across
+    blocks, and each block reads its range once for up to 24 of the S*G
+    rows, so every position's bytes stream from device memory once per KV
+    head while S*G fits one row block.
     """
     B, S, H, hd = q.shape
     K = k.shape[2]

@@ -336,14 +336,20 @@ def test_flash_decode_paged_is_deterministic(T):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,lowp", CASES)
 @pytest.mark.parametrize("paged", [False, True])
-@pytest.mark.parametrize("K,S,G,hd,hdv", [(2, 2, 4, 64, 64), (2, 5, 4, 64, 64),
-                                          (1, 3, 1, 32, 16),
-                                          (2, 16, 4, 64, 64),   # S*G = 64, the ceiling
-                                          (1, 4, 3, 16, 128)])
-def test_flash_decode_spec_matches_plain(dtype, lowp, paged, K, S, G, hd, hdv):
+@pytest.mark.parametrize("K,S,G,hd,hdv,bs,T", [(2, 2, 4, 64, 64, 16, 6), (2, 5, 4, 64, 64, 16, 6),
+                                               (1, 3, 1, 32, 16, 16, 6),
+                                               (2, 16, 4, 64, 64, 16, 6),   # S*G = 64
+                                               (1, 4, 3, 16, 128, 16, 6),
+                                               (2, 17, 4, 64, 64, 16, 6),   # S*G = 68
+                                               (2, 9, 8, 32, 32, 5, 20),    # S*G = 72, bs 5
+                                               (2, 5, 4, 64, 64, 16, 512)])  # a long cache
+def test_flash_decode_spec_matches_plain(dtype, lowp, paged, K, S, G, hd, hdv, bs, T):
+    """Both verify kernels against their plain versions, launched once a
+    call, past the parent's 64-row ceiling (several row blocks) and over a
+    long cache (many splits); a second call gives the same bits."""
     dev = _device()
-    g = torch.Generator(device=dev).manual_seed(S * G + hd)
-    B, bs, T = 5, 16, 6
+    g = torch.Generator(device=dev).manual_seed(S * G + hd + T)
+    B = 5
     cap = bs * T
     q = torch.randn(B, K, S, G, hd, generator=g, device=dev).to(dtype)
     # base 0, ragged, a window past the capacity, and an idle slot at it
@@ -351,18 +357,45 @@ def test_flash_decode_spec_matches_plain(dtype, lowp, paged, K, S, G, hd, hdv):
     tol = BF16 if lowp else F32
     if paged:
         kp, vp, table = _pool_and_table(g, dev, dtype, B, K, hd, hdv, bs, T)
-        before = fa.launches["flash_decode_spec_paged"]
-        out = fa.flash_decode_spec_paged(q, kp, vp, table, lens, lowp=lowp)
-        want = ref.ref_flash_decode_spec_paged(q, kp, vp, table, lens, lowp=lowp)
-        assert fa.launches["flash_decode_spec_paged"] == before + 1
+        args = (q, kp, vp, table, lens)
     else:
         k = torch.randn(B, cap, K, hd, generator=g, device=dev).to(dtype)
         v = torch.randn(B, cap, K, hdv, generator=g, device=dev).to(dtype)
-        before = fa.launches["flash_decode_spec"]
-        out = fa.flash_decode_spec(q, k, v, lens, lowp=lowp)
-        want = ref.ref_flash_decode_spec(q, k, v, lens, lowp=lowp)
-        assert fa.launches["flash_decode_spec"] == before + 1
+        args = (q, k, v, lens)
+    name = "flash_decode_spec_paged" if paged else "flash_decode_spec"
+    before = fa.launches[name]
+    out = getattr(fa, name)(*args, lowp=lowp)
+    assert fa.launches[name] == before + 1
+    want = getattr(ref, f"ref_{name}")(*args, lowp=lowp)
     torch.testing.assert_close(out.float(), want.float(), **tol)
+    assert torch.equal(out, getattr(fa, name)(*args, lowp=lowp))
+
+
+@pytest.mark.cuda
+def test_split_decode_kernels_share_the_arrival_counts():
+    """flash_decode_paged and flash_decode_spec_paged run back to back on one
+    stream, both split, share the stream's arrival counts: each gives the
+    bits it gives alone, and the counts are zero after them."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, K, G, S, hd, bs, T = 8, 8, 4, 5, 64, 16, 64
+    assert fa.decode_paged_plan(T, bs, B * K, 132)[0] > 1
+    q1 = torch.randn(B, K, G, hd, generator=g, device=dev)
+    q2 = torch.randn(B, K, S, G, hd, generator=g, device=dev)
+    kp, vp, table = _pool_and_table(g, dev, torch.float32, B, K, hd, hd, bs, T)
+    lens = torch.tensor([0, 1, 193, 300, 511, 700, 1019, 1024], dtype=torch.int32,
+                        device=dev)
+    alone_dec = fa.flash_decode_paged(q1, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    alone_spec = fa.flash_decode_spec_paged(q2, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        dec = fa.flash_decode_paged(q1, kp, vp, table, lens)
+        spec = fa.flash_decode_spec_paged(q2, kp, vp, table, lens)
+    assert torch.equal(dec, alone_dec) and torch.equal(spec, alone_spec)
+    device, stream = dev.index or torch.cuda.current_device(), \
+        torch.cuda.current_stream(dev).cuda_stream
+    assert not fa._ARRIVALS[(device, stream)].any()
 
 
 @pytest.mark.cuda
@@ -370,16 +403,12 @@ def test_decode_wrappers_refuse_what_the_kernels_do_not_take():
     dev = _device()
     table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     pool = torch.zeros(3, 4, 1, 16, device=dev)
-    with pytest.raises(ValueError, match="at most 64 rows"):
-        fa.flash_decode_spec(torch.zeros(1, 1, 13, 5, 16, device=dev),
-                             torch.zeros(1, 8, 1, 16, device=dev),
-                             torch.zeros(1, 8, 1, 16, device=dev), 2)
-    with pytest.raises(ValueError, match="at most 64 rows"):
-        fa.flash_decode_spec_paged(torch.zeros(1, 1, 13, 5, 16, device=dev),
-                                   pool, pool, table, 2)
     with pytest.raises(ValueError, match="hdv <= 128"):
         fa.flash_decode_paged(torch.zeros(1, 1, 2, 16, device=dev), pool,
                               torch.zeros(3, 4, 1, 256, device=dev), table, 2)
+    with pytest.raises(ValueError, match="hdv <= 128"):
+        fa.flash_decode_spec_paged(torch.zeros(1, 1, 2, 2, 16, device=dev), pool,
+                                   torch.zeros(3, 4, 1, 256, device=dev), table, 2)
     misaligned = torch.zeros(3 * 4 * 16 + 1, device=dev)[1:].view(3, 4, 1, 16)
     for call in (lambda: fa.flash_decode_paged(torch.zeros(1, 1, 2, 16, device=dev),
                                                misaligned, pool, table, 2),
@@ -396,9 +425,9 @@ def test_decode_wrappers_refuse_what_the_kernels_do_not_take():
                                     "flash_decode_spec", "flash_decode_spec_paged"])
 def test_decode_kernels_past_65535_rows(kernel, dtype, lowp):
     """B = 65536 with a short cache runs and matches the plain version: the
-    contiguous and speculative grids put b on grid.y, so their launch goes
-    in two chunks of rows; the paged decode's grid is 1-D. One launch is
-    counted per call."""
+    contiguous decode's grid puts b on grid.y, so its launch goes in two
+    chunks of rows; the paged decode's and both verify kernels' grids are
+    1-D. One launch is counted per call."""
     dev = _device()
     g = torch.Generator(device=dev).manual_seed(65536)
     B, K, G, hd, bs, T, S = 65536, 1, 2, 16, 4, 2, 2
@@ -421,11 +450,15 @@ def test_decode_kernels_past_65535_rows(kernel, dtype, lowp):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout,depth", [("paged", 0), ("contig", 3), ("paged", 3)])
+@pytest.mark.parametrize("layout,depth", [("paged", 0), ("contig", 3), ("paged", 3),
+                                          ("contig", 32), ("paged", 32)])
 def test_serve_paged_and_speculative_on_the_card(layout, depth):
     """The reduced llama3.2-1b served paged and/or speculative through the
     kernels: the same streams as the plain attention on the card, and the
-    path's kernel launched."""
+    path's kernel launched. At draft depth 32 (G = 2 at the reduced size) a
+    verify pass scores S = 33 positions, R = 66 rows, past the parent's
+    64-row ceiling: ``max_seq`` and the budget leave the engine room to
+    draft all 32."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -437,22 +470,28 @@ def test_serve_paged_and_speculative_on_the_card(layout, depth):
     prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
                for n in (3, 9, 3, 5)]
     prompts[2] = prompts[0]  # identical: a full-prompt hit and a COW copy
-    kernel = {("paged", 0): "flash_decode_paged", ("contig", 3): "flash_decode_spec",
-              ("paged", 3): "flash_decode_spec_paged"}[(layout, depth)]
+    kernel = "flash_decode_paged" if depth == 0 else \
+        "flash_decode_spec_paged" if layout == "paged" else "flash_decode_spec"
+    max_seq, gen = (96, 40) if depth == 32 else (48, 10)
     streams = {}
     for impl in ("pallas", "naive"):
         model = build_model(cfg, impl=impl, device=dev)
         params = model.init(model.generator(0))
         engine = serve.ContinuousBatchingEngine(
-            model, params, max_batch=3, max_seq=48, kv_layout=layout,
+            model, params, max_batch=3, max_seq=max_seq, kv_layout=layout,
             block_size=4, draft_depth=depth)
+        depths = []
+        spec_k = engine._spec_k
+        engine._spec_k = lambda active: depths.append(spec_k(active)) or depths[-1]
         before = fa.launches[kernel]
         done = engine.run([serve.Request(uid=u, prompt=p.astype(np.int32),
-                                         max_new_tokens=10)
+                                         max_new_tokens=gen)
                            for u, p in enumerate(prompts)])
         streams[impl] = {u: f.tokens for u, f in done.items()}
         launched = fa.launches[kernel] - before
         assert (launched > 0) == (impl == "pallas"), (impl, launched)
+        assert max(depths) == depth, depths
+    assert cfg.n_heads // cfg.n_kv_heads == 2
     assert streams["pallas"] == streams["naive"]
 
 
