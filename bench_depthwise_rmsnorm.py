@@ -14,6 +14,9 @@ process, in turns: parent, change, change, parent. Runs pieces of
   (f32, bf16), 512 x 512 and 4096 x 96. Each against its plain version,
   with the kernel's, the plain version's and the library call's times
   (``F.conv2d(groups=C)``, ``F.rms_norm`` and its backward) and the bound;
+- the device time of each kernel one ``rmsnorm_bwd`` call launches, at
+  4096 x 2048 in f32 and bf16 (``torch.profiler``, L2 flushed before each
+  of 20 calls): the kernel beside the wrapper's sum of its partials;
 - phase 12 (unless ``--no-cnn``): each CNN's forward ms at batch 128,
   pallas and naive, with the device ms of one forward's depthwise launches
   beside the same layers on ``F.conv2d(groups=C)``;
@@ -35,6 +38,33 @@ import torch
 import chip_smoke
 
 ROOT = Path(__file__).resolve().parent
+
+
+def rmsnorm_bwd_device_us(rn) -> dict:
+    """Device us of each kernel one rmsnorm_bwd call launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, cot = (torch.randn(4096, 2048, generator=g, device="cuda").to(dtype)
+                  for _ in range(2))
+        s = torch.randn(2048, generator=g, device="cuda").to(dtype)
+        rn.rmsnorm_bwd(x, s, cot)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                flush.zero_()
+                rn.rmsnorm_bwd(x, s, cot)
+            torch.cuda.synchronize()
+        key = str(dtype).replace("torch.", "")
+        out[key] = {e.key[:80]: e.self_device_time_total / e.count
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.key}
+        print(f"[bench] rmsnorm_bwd 4096x2048 {key} device us a call: {out[key]}",
+              flush=True)
+    return out
 
 
 def main() -> int:
@@ -65,6 +95,7 @@ def main() -> int:
     out = {"src": args.src, "device": smi,
            "depthwise_conv": chip_smoke.check_depthwise(dw, ref)}
     out["rmsnorm_fwd"], out["rmsnorm_bwd"] = chip_smoke.check_rmsnorm(rn, ref)
+    out["rmsnorm_bwd_device_us"] = rmsnorm_bwd_device_us(rn)
     if not args.no_attention:
         out["flash_fwd"] = chip_smoke.check_flash_fwd(fa, ref)
         out["flash_bwd_dq"], out["flash_bwd_dkv"] = chip_smoke.check_flash_bwd(fb, ref)

@@ -10,7 +10,7 @@ Phases (any failure raises and the script exits non-zero):
 1. Device: exits non-zero, printing no result, unless
    ``torch.cuda.is_available()``. TF32 is switched off for matmuls and
    cuDNN, so every f32 product on the card runs in full f32.
-2. Build: compiles the seven ``src/repro_torch/csrc/*.cu`` for sm_90a with
+2. Build: compiles the six ``src/repro_torch/csrc/*.cu`` for sm_90a with
    nvcc (one process per source, started together) into ``build/kernels/``.
 3. Kernels: calls each kernel's wrapper on the card at the shapes of the
    serve and train paths and holds it against its plain PyTorch version
@@ -30,7 +30,8 @@ Phases (any failure raises and the script exits non-zero):
    ``ContinuousBatchingEngine(attn_impl="pallas")``: 8 slots, 16 requests,
    ragged prompts of 192-320 tokens, 32 greedy tokens each, max_seq 1024.
    The kernels' launch counts are set to 0 just before this run and read
-   just after; both must be > 0.
+   just after; both must be > 0. Prints a ``torch.profiler`` breakdown of
+   one decode step, with the device ms of its flash_decode launches.
 5. Reference: the same requests through the plain attention path
    (``attn_impl="naive"``) on the card. Streams must be token-identical; a
    divergence is tolerated (and printed) only where the plain path's top-2
@@ -103,7 +104,9 @@ Phases (any failure raises and the script exits non-zero):
    kernels over the run.
 
 Every path's launch counts are set to 0 just before its run and read just
-after. Phase 3 also holds the three paged and speculative kernels against
+after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
+G4 hd64, Smax 1024) and at Smax 8192, in f32 and bf16 with lowp, each with
+the splits its plan chose. It also holds the three paged and speculative kernels against
 their plain versions (B8 K8 G4 hd64, 64 blocks of 16, a shuffled table with
 out-of-range entries, ragged lengths including 0 and past the capacity,
 speculative windows of S = 2 and 5; the paged decode and the speculative
@@ -299,16 +302,25 @@ def check_flash_fwd(fa, ref):
     return checks
 
 
+DECODE_LONG = [0, 1, 1544, 2400, 4088, 5600, 8192, 8193]  # Smax 8192: the serve lengths x 8
+
+
 def check_flash_decode(fa, ref):
     """Decode attention: B=8, K=8, G=4, hd=64, Smax=1024, ragged lengths
-    including 0 and Smax + 1."""
+    including 0 and Smax + 1, in f32 and bf16 with lowp; then Smax=8192
+    (268 MB of f32 cache) at the lengths x 8. Each check records the splits
+    of the tree's plan."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(2)
-    B, K, G, hd, Smax = 8, 8, 4, 64, 1024
-    lens_list = [0, 1, 193, 300, 511, 700, 1024, 1025]
-    lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    B, K, G, hd = 8, 8, 4, 64
     checks = []
-    for dtype, lowp in [(torch.float32, False), (torch.bfloat16, True)]:
+    for Smax, dtype, lowp in [(1024, torch.float32, False), (1024, torch.bfloat16, True),
+                              (8192, torch.float32, False), (8192, torch.bfloat16, True)]:
+        lens_list = [0, 1, 193, 300, 511, 700, 1024, 1025] if Smax == 1024 else DECODE_LONG
+        lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        splits = (fa.decode_plan(Smax, B * K * -(-G // fa.DECODE_ROWS),
+                                 torch.cuda.get_device_properties(0).multi_processor_count)[0]
+                  if hasattr(fa, "decode_plan") else 1)  # the parent's kernel: no split
         q = torch.randn(B, K, G, hd, generator=g, device="cuda").to(dtype)
         k, v = (torch.randn(B, Smax, K, hd, generator=g, device="cuda").to(dtype)
                 for _ in range(2))
@@ -330,7 +342,7 @@ def check_flash_decode(fa, ref):
         flops = live * K * G * 4 * hd
         peak = BF16_FLOPS if lowp else F32_FLOPS
         c = {
-            "shape": [B, K, G, hd, Smax], "lengths": lens_list,
+            "shape": [B, K, G, hd, Smax], "lengths": lens_list, "splits": splits,
             "dtype": str(dtype).replace("torch.", ""), "lowp": lowp,
             "max_abs_err": err, "tol": tol["atol"], "ok": ok,
             "ms": time_ms(lambda: fa.flash_decode(q, k, v, lengths, lowp=lowp)),
@@ -342,10 +354,11 @@ def check_flash_decode(fa, ref):
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
             else "operations",
         }
-        print(f"[kernels] flash_decode {c['shape']} {c['dtype']} lowp={lowp}: "
-              f"max_abs_err={err:.3g} (tol {c['tol']}) kernel {c['ms']:.4f} ms, "
-              f"plain {c['plain_ms']:.4f} ms, sdpa {c['library_ms']:.4f} ms, "
-              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+        print(f"[kernels] flash_decode {c['shape']} splits={splits} {c['dtype']} "
+              f"lowp={lowp}: max_abs_err={err:.3g} (tol {c['tol']}) kernel "
+              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, sdpa "
+              f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']})", flush=True)
         checks.append(c)
     return checks
 
@@ -759,8 +772,10 @@ def profile_decode(serve, model, params, reqs, steps: int = 4, label="",
                    budget: int = 6, **engine_kw):
     """Where a batched decode step's time goes: admit one request per slot,
     then trace ``steps`` decode steps with torch.profiler. Prints the host
-    time per step, the device time per step (sum of kernel times) and the
-    kernels with the most device time."""
+    time per step, the device time per step (sum of kernel times), the
+    kernels with the most device time and the device time of the decode
+    attention kernels (every kernel named ``flash_decode*``). Returns (host
+    ms, device ms, decode-attention device ms) a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     engine = serve.ContinuousBatchingEngine(model, params,
@@ -787,7 +802,11 @@ def profile_decode(serve, model, params, reqs, steps: int = 4, label="",
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
-    return host_ms, dev_ms
+    attn = [e for e in events if "flash_decode" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
+    print(f"[profile]   flash_decode* kernels: {attn_ms:.4f} ms/step in "
+          f"{sum(e.count for e in attn) // steps} calls/step")
+    return host_ms, dev_ms, attn_ms
 
 
 def profile_paged_prefill(serve, model, params, req, **engine_kw):
@@ -992,6 +1011,72 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
     del model, naive, params
     free_cuda()
     return paged_out, spec, launches
+
+
+def serve_phases(fa, serve, build_model, cfg, reqs):
+    """Phases 4 and 5: ``reqs`` served at full width through the kernels
+    (with a profiled decode step, its flash_decode device ms among it),
+    then through the plain path, streams held to phase 5's rule. Returns
+    (the JSON object, phase 4's launch counts, phase 4's streams)."""
+    # -- phase 4: serve with the kernels ---------------------------------------
+    model = build_model(cfg, impl="pallas", device="cuda")
+    params = model.init(model.generator(0))
+    naive = build_model(cfg, impl="naive", device="cuda")
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, f32; "
+          f"prompts {[len(r.prompt) for r in reqs]}", flush=True)
+
+    with torch.inference_mode():  # small-input agreement of the two paths
+        toks = torch.as_tensor(reqs[0].prompt[:64], device="cuda")[None]
+        lk, ck = model.prefill(params, {"tokens": toks})
+        ln, cn = naive.prefill(params, {"tokens": toks})
+    check(lk.shape == (1, 1, cfg.vocab_size) and bool(torch.isfinite(lk).all()),
+          f"prefill logits not finite of shape (1, 1, V): {tuple(lk.shape)}")
+    diff = float((lk - ln).abs().max())
+    check(diff < LOGIT_TOL, f"pallas vs naive prefill logits differ by {diff}")
+    check(ck["k"].shape == (cfg.n_layers, 1, 64, cfg.n_kv_heads, cfg.head_dim),
+          f"prefill cache shape {tuple(ck['k'].shape)}")
+    print(f"[serve] prefill of 64 tokens: pallas vs naive max |dlogit| {diff:.3g}")
+
+    run_engine(serve, model, params, reqs[:1])  # warm-up: cuBLAS handles, allocator
+    fa.reset_launches()
+    done, engine, wall = run_engine(serve, model, params, reqs)
+    launches = fa.all_launches()
+    serve_launches = dict(launches)
+    tok_s = engine.tokens_out / wall
+    print(f"[serve] pallas: {engine.tokens_out} tokens in {wall:.3f} s "
+          f"({tok_s:.1f} tok/s), {engine.decode_steps} decode steps, occupancy "
+          f"{engine.occupancy:.3f}, launches {launches}", flush=True)
+    check(launches["flash_fwd"] > 0 and launches["flash_decode"] > 0,
+          f"the serve run did not go through both kernels: {launches}")
+    check(sorted(done) == list(range(SERVE["requests"])), "requests missing")
+    for u, f in done.items():
+        check(len(f.tokens) == SERVE["gen"] and f.reason == "length"
+              and all(0 <= t < cfg.vocab_size for t in f.tokens),
+              f"request {u}: {len(f.tokens)} tokens, reason {f.reason}")
+
+    prof = {impl: profile_decode(serve, m, params, reqs)
+            for impl, m in (("pallas", model), ("naive", naive))}
+
+    # -- phase 5: the same requests through the plain path ---------------------
+    done_n, engine_n, wall_n = run_engine(serve, naive, params, reqs)
+    print(f"[serve] naive: {engine_n.tokens_out} tokens in {wall_n:.3f} s "
+          f"({engine_n.tokens_out / wall_n:.1f} tok/s)", flush=True)
+    identical = same_streams("serve", streams_of(done), streams_of(done_n),
+                             naive, params, reqs)
+
+    serve_out = {
+        "tok_s": tok_s, "wall_s": wall, "tokens": engine.tokens_out,
+        "decode_steps": engine.decode_steps, "occupancy": engine.occupancy,
+        "naive_tok_s": engine_n.tokens_out / wall_n,
+        "identical_streams": identical,
+        "decode_step_host_ms": {k: v[0] for k, v in prof.items()},
+        "decode_step_device_ms": {k: v[1] for k, v in prof.items()},
+        "decode_step_flash_decode_ms": prof["pallas"][2]}
+    contig_streams = streams_of(done)
+    del model, naive, params, engine, engine_n, done, done_n, lk, ln, ck, cn
+    free_cuda()
+    return serve_out, serve_launches, contig_streams
 
 
 # ---------------------------------------------------------------------------
@@ -1574,65 +1659,11 @@ def main() -> int:
               + rms_fwd + rms_bwd):
         check(c["ok"], f"kernel disagrees with its plain version: {c}")
 
-    # -- phase 4: serve with the kernels ---------------------------------------
+    # -- phases 4 and 5: serve with the kernels, then the plain path -----------
     cfg = get_config("llama3.2-1b")
-    model = build_model(cfg, impl="pallas", device="cuda")
-    params = model.init(model.generator(0))
-    naive = build_model(cfg, impl="naive", device="cuda")
     reqs = make_requests(serve, cfg.vocab_size)
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, f32; "
-          f"prompts {[len(r.prompt) for r in reqs]}", flush=True)
-
-    with torch.inference_mode():  # small-input agreement of the two paths
-        toks = torch.as_tensor(reqs[0].prompt[:64], device="cuda")[None]
-        lk, ck = model.prefill(params, {"tokens": toks})
-        ln, cn = naive.prefill(params, {"tokens": toks})
-    check(lk.shape == (1, 1, cfg.vocab_size) and bool(torch.isfinite(lk).all()),
-          f"prefill logits not finite of shape (1, 1, V): {tuple(lk.shape)}")
-    diff = float((lk - ln).abs().max())
-    check(diff < LOGIT_TOL, f"pallas vs naive prefill logits differ by {diff}")
-    check(ck["k"].shape == (cfg.n_layers, 1, 64, cfg.n_kv_heads, cfg.head_dim),
-          f"prefill cache shape {tuple(ck['k'].shape)}")
-    print(f"[serve] prefill of 64 tokens: pallas vs naive max |dlogit| {diff:.3g}")
-
-    run_engine(serve, model, params, reqs[:1])  # warm-up: cuBLAS handles, allocator
-    fa.reset_launches()
-    done, engine, wall = run_engine(serve, model, params, reqs)
-    launches = fa.all_launches()
-    serve_launches = dict(launches)
-    tok_s = engine.tokens_out / wall
-    print(f"[serve] pallas: {engine.tokens_out} tokens in {wall:.3f} s "
-          f"({tok_s:.1f} tok/s), {engine.decode_steps} decode steps, occupancy "
-          f"{engine.occupancy:.3f}, launches {launches}", flush=True)
-    check(launches["flash_fwd"] > 0 and launches["flash_decode"] > 0,
-          f"the serve run did not go through both kernels: {launches}")
-    check(sorted(done) == list(range(SERVE["requests"])), "requests missing")
-    for u, f in done.items():
-        check(len(f.tokens) == SERVE["gen"] and f.reason == "length"
-              and all(0 <= t < cfg.vocab_size for t in f.tokens),
-              f"request {u}: {len(f.tokens)} tokens, reason {f.reason}")
-
-    prof = {impl: profile_decode(serve, m, params, reqs)
-            for impl, m in (("pallas", model), ("naive", naive))}
-
-    # -- phase 5: the same requests through the plain path ---------------------
-    done_n, engine_n, wall_n = run_engine(serve, naive, params, reqs)
-    print(f"[serve] naive: {engine_n.tokens_out} tokens in {wall_n:.3f} s "
-          f"({engine_n.tokens_out / wall_n:.1f} tok/s)", flush=True)
-    identical = same_streams("serve", streams_of(done), streams_of(done_n),
-                             naive, params, reqs)
-
-    serve_out = {
-        "tok_s": tok_s, "wall_s": wall, "tokens": engine.tokens_out,
-        "decode_steps": engine.decode_steps, "occupancy": engine.occupancy,
-        "naive_tok_s": engine_n.tokens_out / wall_n,
-        "identical_streams": identical,
-        "decode_step_host_ms": {k: v[0] for k, v in prof.items()},
-        "decode_step_device_ms": {k: v[1] for k, v in prof.items()}}
-    contig_streams = streams_of(done)
-    del model, naive, params, engine, engine_n, done, done_n, lk, ln, ck, cn
-    free_cuda()
+    serve_out, serve_launches, contig_streams = serve_phases(fa, serve, build_model,
+                                                             cfg, reqs)
 
     train_out, train_launches = train_phases(fa, build_model, cfg)
     paged_out, spec_out, path_launches = paged_and_spec_phases(
@@ -1671,7 +1702,7 @@ def main() -> int:
               "pallas_call at :338)", bwd_dkv,
               {"train": train_launches["flash_bwd_dkv"],
                "adaptive": adaptive_launches["flash_bwd_dkv"]}),
-        entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+        entry("flash_decode", "src/repro_torch/csrc/flash_decode_paged.cu",
               "src/repro/kernels/flash_attention.py:438 (_decode_kernel, "
               "pallas_call at :536)", dec,
               {"serve": serve_launches["flash_decode"]}),

@@ -1,37 +1,43 @@
-// Single-query flash decode for Hopper (sm_90a) over a paged KV cache.
+// Single-query flash decode for Hopper (sm_90a), over a contiguous or a paged
+// KV cache.
 //
-// Replaces the TPU kernel
-// src/repro/kernels/flash_attention.py::_decode_paged_kernel (called through
-// flash_decode_paged): the math of _decode_kernel (csrc/flash_decode.cu) with
-// the KV held in a block pool shared by all sequences. Row b's virtual cache
-// position p lives at offset p % bs of physical block
-// table[b, min(p / bs, T - 1)], the table entry clamped to [0, NB - 1] (the
-// wrapper clamps too, as the reference clips the table). The G query heads
-// that share a KV head get an online softmax over the positions
-// < min(lengths[b], T * bs); a row of length 0 returns zeros. An optional
-// explicit softmax scale, and a value head dim hdv that may differ from hd.
-// Under lowp q * scale, k, v and p are rounded to bf16 at the reference's
-// points, l summing the unrounded p.
+// Replaces the TPU kernels src/repro/kernels/flash_attention.py::
+// _decode_kernel (flash_decode) and _decode_paged_kernel (flash_decode_paged),
+// which is _decode_kernel behind a block table. The G query heads that share
+// a KV head get an online softmax over the positions < min(lengths[b],
+// capacity); a row of length 0 returns zeros, and a length past the capacity
+// reads it all (an idle serving slot that retired at max_seq decodes with
+// max_seq + 1). An optional explicit softmax scale, and a value head dim hdv
+// that may differ from hd. Under lowp q * scale, k, v and p are rounded to
+// bf16 at the reference's points, l summing the unrounded p.
+//
+// The address map is a template parameter: contiguous row b * Smax + p of the
+// (B,Smax,K,hd) cache (capacity Smax), or pool row table[b, min(p / bs,
+// T - 1)] * bs + p % bs of the (NB,bs,K,hd) pool (capacity T * bs), the table
+// entry clamped to [0, NB - 1] (the wrapper clamps too, as the reference clips
+// the table). The contiguous cache is read as a table of ceil(Smax / 64)
+// blocks of 64 positions, so both maps share the plan, the chunks and the
+// merge below.
 //
 // What bounds it on the H100: the bytes of the live cache. Each cached
 // element read feeds 2 G FLOPs (8 at G = 4), far below f32 CUDA-core balance
-// (20 FLOPs a byte). At the paged serve shape (B8 K8 G4 hd64, 64 pool blocks
-// of 16 a row, 3,753 live positions) that is 15.4 MB, 0.0046 ms at 3.35 TB/s.
+// (20 FLOPs a byte). At the serve shape (B8 K8 G4 hd64, 3,753 live
+// positions) that is 15.4 MB, 0.0046 ms at 3.35 TB/s.
 //
 // What the design does about it: split the keys across blocks, so that
 // every SM has copies in flight.
 //  - The grid is 1-D over (split, row group, kv head, b). A split is a
-//    contiguous range of `bps` whole pool blocks of the row's table (the
-//    wrapper's plan, kernels/flash_attention.py::decode_paged_plan, from T,
-//    bs, B*K and the SM count); a row group is 4 of the G query rows. A
-//    block whose range starts at or past lengths[b] returns at once.
-//  - A block translates its pool blocks once (the table entries into shared
-//    memory), then stages its positions' K and V rows of its kv head in
-//    chunks of up to 64 positions (whole pool blocks where bs <= 64) through
-//    a 2-stage ring of cp.async copies, 16 bytes each where the rows allow
-//    it: a position's hd elements are contiguous, positions K * hd apart.
-//    The next chunk's copies are issued right after the one barrier of a
-//    chunk, so they overlap this chunk's arithmetic.
+//    contiguous range of `bps` whole table entries of the row (the wrapper's
+//    plan, kernels/flash_attention.py::decode_paged_plan, from T, bs, B*K
+//    and the SM count); a row group is 4 of the G query rows. A block whose
+//    range starts at or past the row's length returns at once.
+//  - A paged block translates its pool blocks once (the table entries into
+//    shared memory). A block stages its positions' K and V rows of its kv
+//    head in chunks of up to 64 positions (whole pool blocks where bs <= 64)
+//    through a 2-stage ring of cp.async copies, 16 bytes each where the rows
+//    allow it: a position's hd elements are contiguous, positions K * hd
+//    apart. The next chunk's copies are issued right after the one barrier
+//    of a chunk, so they overlap this chunk's arithmetic.
 //  - Each of the 4 warps takes 16 keys of a chunk: lane (key, half) sums
 //    half of the head dims of q.k for the 4 rows, one shuffle joins the
 //    halves, and the warp keeps its own online softmax (row max and sum over
@@ -46,13 +52,13 @@
 //    time than the merge itself: PERF.md, section 6). Nothing syncs the
 //    host, and two calls give the same bits.
 //  - Shared memory at hd 64 f32: 2 stages of 64 x (272 + 256) bytes, 1 KB of
-//    queries and the table entries, 69.7 KB: three blocks an SM.
+//    queries and (paged) the table entries, 69.7 KB: three blocks an SM.
 //
-// Layout: q (B,K,G,hd), k_pool (NB,bs,K,hd), v_pool (NB,bs,K,hdv),
-// table (B,T) int32, lengths (B,) int32, out (B,K,G,hdv), all contiguous,
-// f32 or bf16, hd a multiple of 4, hdv <= 128; the workspace ws_ml
-// (B*K, splits, G, 2) and ws_acc (B*K, splits, G, hdv) f32. The kernels
-// allocate nothing and launch on the caller's stream. This file is
+// Layout: q (B,K,G,hd); k (B,Smax,K,hd) or k_pool (NB,bs,K,hd), v likewise
+// with hdv; table (B,T) int32, lengths (B,) int32, out (B,K,G,hdv), all
+// contiguous, f32 or bf16, hd a multiple of 4, hdv <= 128; the workspace
+// ws_ml (B*K, splits, G, 2) and ws_acc (B*K, splits, G, hdv) f32. The
+// kernels allocate nothing and launch on the caller's stream. This file is
 // self-contained (no shared header), so the build's hash of it covers
 // everything it compiles.
 
@@ -191,15 +197,18 @@ __host__ __device__ inline int chunk_positions(int bs) {
 // rows over its range of positions, written as o (splits == 1) or as an f32
 // partial (m, l, acc) of the workspace. JV = value dims a lane holds in 32s
 // (hdv <= 32 JV); kcw and vcw are the copy widths in bytes of K and V rows.
-template <typename T, int JV, bool LOWP>
+// PAGED: k and v are pools read through the table, n_cache = NB pool blocks;
+// else the contiguous cache, n_cache = Smax, bs = kChunk and nT =
+// ceil(Smax / kChunk) (no table).
+template <typename T, int JV, bool LOWP, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_paged_split(const T* __restrict__ q, const T* __restrict__ k_pool,
-                         const T* __restrict__ v_pool, const int* __restrict__ table,
-                         const int* __restrict__ lengths, T* __restrict__ out,
-                         float* __restrict__ ws_ml, float* __restrict__ ws_acc,
-                         int* __restrict__ arrivals, int K, int G,
-                         int NB, int bs, int nT, int hd, int hdv, float scale, int splits,
-                         int bps, int kcw, int vcw) {
+flash_decode_split(const T* __restrict__ q, const T* __restrict__ k_pool,
+                   const T* __restrict__ v_pool, const int* __restrict__ table,
+                   const int* __restrict__ lengths, T* __restrict__ out,
+                   float* __restrict__ ws_ml, float* __restrict__ ws_acc,
+                   int* __restrict__ arrivals, int K, int G,
+                   int n_cache, int bs, int nT, int hd, int hdv, float scale, int splits,
+                   int bps, int kcw, int vcw) {
   const Layout lay(hd, hdv, bps, (int)sizeof(T));
   extern __shared__ float4 smem4[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
@@ -216,7 +225,7 @@ flash_decode_paged_split(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int rg = (int)(idx % (unsigned)n_rg);
   const int bk = (int)(idx / (unsigned)n_rg);  // b * K + kv head
   const int b = bk / K, kh = bk - b * K;
-  const int cap = nT * bs;
+  const int cap = PAGED ? nT * bs : n_cache;
   const int len = min(max(lengths[b], 0), cap);
   const int p0 = split * bps * bs, p1 = min(p0 + bps * bs, len);
   const int g0 = rg * kRows, gn = min(kRows, G - g0);
@@ -228,9 +237,11 @@ flash_decode_paged_split(const T* __restrict__ q, const T* __restrict__ k_pool,
     qs[i] = r < gn ? dot_in<LOWP>(to_f32(q[row0 * hd + i]) * scale) : 0.f;
   }
   const int first = split * bps;  // the block's first table entry
-  const int n_tbl = min(bps, nT - first);
-  for (int i = t; i < n_tbl; i += kThreads)
-    tbl[i] = min(max(table[(size_t)b * nT + first + i], 0), NB - 1);
+  if constexpr (PAGED) {
+    const int n_tbl = min(bps, nT - first);
+    for (int i = t; i < n_tbl; i += kThreads)
+      tbl[i] = min(max(table[(size_t)b * nT + first + i], 0), n_cache - 1);
+  }
   if (p0 >= p1) {
     if (split == 0)  // a row of length 0 returns zeros
       for (int i = t; i < gn * hdv; i += kThreads) store(out + row0 * hdv + i, 0.f);
@@ -242,16 +253,25 @@ flash_decode_paged_split(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int n_chunks = (p1 - p0 + ch - 1) / ch;
   const int elt = (int)sizeof(T);
   const int k_row = hd * elt, v_row = hdv * elt;  // bytes of a cache row
-  const uint8_t* kb = reinterpret_cast<const uint8_t*>(k_pool) + (size_t)kh * k_row;
-  const uint8_t* vb = reinterpret_cast<const uint8_t*>(v_pool) + (size_t)kh * v_row;
   const size_t k_stride = (size_t)K * k_row, v_stride = (size_t)K * v_row;  // a position apart
+  // paged: the pool's rows; contiguous: sequence b's
+  const size_t seq = PAGED ? 0 : (size_t)b * n_cache;
+  const uint8_t* kb =
+      reinterpret_cast<const uint8_t*>(k_pool) + seq * k_stride + (size_t)kh * k_row;
+  const uint8_t* vb =
+      reinterpret_cast<const uint8_t*>(v_pool) + seq * v_stride + (size_t)kh * v_row;
 
-  // the pool row of each position of chunk c, into its stage's prow
+  // the cache row of each position of chunk c, into its stage's prow
   const auto translate = [&](int c) {
     const int c0 = p0 + c * ch;
     if (t < min(ch, p1 - c0)) {
-      const int pos = c0 + t, j = pos / bs;
-      prow[(c % kStages) * kChunk + t] = tbl[j - first] * bs + (pos - j * bs);
+      const int pos = c0 + t;
+      if constexpr (PAGED) {
+        const int j = pos / bs;
+        prow[(c % kStages) * kChunk + t] = tbl[j - first] * bs + (pos - j * bs);
+      } else {
+        prow[(c % kStages) * kChunk + t] = pos;
+      }
     }
   };
   // issue the copies of chunk c into its stage, as one group
@@ -432,13 +452,16 @@ flash_decode_paged_split(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
+// paged: NB pool blocks of bs positions, T table entries a row;
+// contiguous: Smax positions a row, read as nT = ceil(Smax / kChunk) table
+// entries of bs = kChunk
 struct Args {
   const void *q, *k, *v;
   const int *table, *lengths;
   void* out;
   float *ws_ml, *ws_acc;
   int* arrivals;
-  int B, K, G, NB, bs, nT, hd, hdv;
+  int B, K, G, NB, Smax, bs, nT, hd, hdv;
   float scale;
   int splits, bps;
   cudaStream_t stream;
@@ -451,10 +474,10 @@ int copy_width(const void* base, int row_bytes) {
   return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 2;
 }
 
-template <typename T, int JV, bool LOWP>
+template <typename T, int JV, bool LOWP, bool PAGED>
 cudaError_t launch(const Args& a) {
-  const Layout lay(a.hd, a.hdv, a.bps, (int)sizeof(T));
-  auto kernel = flash_decode_paged_split<T, JV, LOWP>;
+  const Layout lay(a.hd, a.hdv, PAGED ? a.bps : 0, (int)sizeof(T));
+  auto kernel = flash_decode_split<T, JV, LOWP, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          lay.total);
   if (err != cudaSuccess) return err;
@@ -463,57 +486,75 @@ cudaError_t launch(const Args& a) {
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, lay.total, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, a.table, a.lengths, (T*)a.out, a.ws_ml,
-      a.ws_acc, a.arrivals, a.K, a.G, a.NB, a.bs, a.nT, a.hd, a.hdv, a.scale, a.splits, a.bps,
+      a.ws_acc, a.arrivals, a.K, a.G, PAGED ? a.NB : a.Smax, a.bs, a.nT, a.hd, a.hdv, a.scale,
+      a.splits, a.bps,
       copy_width(a.k, a.hd * (int)sizeof(T)), copy_width(a.v, a.hdv * (int)sizeof(T)));
   return cudaGetLastError();
 }
 
-template <typename T, bool LOWP>
+template <typename T, bool LOWP, bool PAGED>
 cudaError_t launch_jv(const Args& a) {
-  if (a.hdv <= 32) return launch<T, 1, LOWP>(a);
-  if (a.hdv <= 64) return launch<T, 2, LOWP>(a);
-  return launch<T, 4, LOWP>(a);
+  if (a.hdv <= 32) return launch<T, 1, LOWP, PAGED>(a);
+  if (a.hdv <= 64) return launch<T, 2, LOWP, PAGED>(a);
+  return launch<T, 4, LOWP, PAGED>(a);
 }
 
-template <typename T>
-cudaError_t launch_t(const Args& a, int lowp) {
-  return lowp ? launch_jv<T, true>(a) : launch_jv<T, false>(a);
+template <bool PAGED>
+int run(const Args& a, int is_bf16, int lowp, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int elt = is_bf16 ? 2 : 4;
+  if (a.hd % 4 != 0 || a.hdv < 1 || a.hdv > 128 || a.bs < 1 || a.nT < 1 ||
+      (PAGED ? a.NB < 1 : a.Smax < 1) || a.splits < 1 || a.bps < 1 ||
+      (long long)a.splits * a.bps < a.nT || (long long)(a.splits - 1) * a.bps >= a.nT ||
+      (a.splits > 1 && (a.ws_ml == nullptr || a.ws_acc == nullptr || a.arrivals == nullptr)) ||
+      Layout(a.hd, a.hdv, PAGED ? a.bps : 0, elt).total > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return (int)(lowp ? launch_jv<__nv_bfloat16, true, PAGED>(a)
+                      : launch_jv<__nv_bfloat16, false, PAGED>(a));
+  return (int)(lowp ? launch_jv<float, true, PAGED>(a) : launch_jv<float, false, PAGED>(a));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of shared memory one split block needs (elt: bytes of an element).
-long long flash_decode_paged_smem_bytes(int hd, int hdv, int bps, int elt) {
-  return (long long)Layout(hd, hdv, bps, elt).total;
+// Bytes of shared memory one split block needs (elt: bytes of an element;
+// n_tbl: the table entries a block holds, 0 for the contiguous cache).
+long long flash_decode_smem_bytes(int hd, int hdv, int n_tbl, int elt) {
+  return (long long)Layout(hd, hdv, n_tbl, elt).total;
 }
 
-int flash_decode_paged_max_smem_bytes() { return kMaxSmem; }
+int flash_decode_max_smem_bytes() { return kMaxSmem; }
 
-// Returns cudaGetLastError() after the launch (0 on success), or
+// Both return cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a geometry the kernel does not take. splits
-// blocks of bps table entries each cover a row (splits * bps >= T); with
+// blocks of bps table entries each (pool blocks, or 64-position blocks of the
+// contiguous cache) cover a row (splits * bps >= the row's entries); with
 // splits > 1, ws_ml and ws_acc hold (B*K, splits, G, 2) and
 // (B*K, splits, G, hdv) floats, and arrivals B*K*ceil(G/4) ints that are
 // zero (each call leaves them so).
+int flash_decode(const void* q, const void* k, const void* v, const void* lengths, void* out,
+                 void* ws_ml, void* ws_acc, void* arrivals, int B, int K, int G, int Smax,
+                 int hd, int hdv, float scale, int splits, int bps, int is_bf16, int lowp,
+                 int device, void* stream) {
+  const Args a{q, k, v, nullptr, (const int*)lengths, out, (float*)ws_ml, (float*)ws_acc,
+               (int*)arrivals, B, K, G, 0, Smax, kChunk,
+               Smax < 1 ? 0 : (Smax + kChunk - 1) / kChunk, hd, hdv, scale, splits, bps,
+               (cudaStream_t)stream};
+  return run<false>(a, is_bf16, lowp, device);
+}
+
 int flash_decode_paged(const void* q, const void* k_pool, const void* v_pool,
                        const void* table, const void* lengths, void* out, void* ws_ml,
                        void* ws_acc, void* arrivals, int B, int K, int G, int NB, int bs, int nT, int hd,
                        int hdv, float scale, int splits, int bps, int is_bf16, int lowp,
                        int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int elt = is_bf16 ? 2 : 4;
-  if (hd % 4 != 0 || hdv < 1 || hdv > 128 || bs < 1 || nT < 1 || NB < 1 || splits < 1 ||
-      bps < 1 || (long long)splits * bps < nT || (long long)(splits - 1) * bps >= nT ||
-      (splits > 1 && (ws_ml == nullptr || ws_acc == nullptr || arrivals == nullptr)) ||
-      Layout(hd, hdv, bps, elt).total > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
   const Args a{q, k_pool, v_pool, (const int*)table, (const int*)lengths, out,
-               (float*)ws_ml, (float*)ws_acc, (int*)arrivals, B, K, G, NB, bs, nT, hd, hdv,
+               (float*)ws_ml, (float*)ws_acc, (int*)arrivals, B, K, G, NB, 0, bs, nT, hd, hdv,
                scale, splits, bps, (cudaStream_t)stream};
-  return (int)(is_bf16 ? launch_t<__nv_bfloat16>(a, lowp) : launch_t<float>(a, lowp));
+  return run<true>(a, is_bf16, lowp, device);
 }
 
 const char* kernel_error_string(int code) {

@@ -19,6 +19,7 @@ edited source builds anew and a stale library is never loaded.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,8 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # every kernel library of the port, one per csrc/<name>.cu
-LIBRARIES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
-             "flash_decode_spec", "depthwise_conv", "rmsnorm")
+LIBRARIES = ("flash_fwd", "flash_bwd", "flash_decode_paged", "flash_decode_spec",
+             "depthwise_conv", "rmsnorm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}  # loaded libraries, one per source
 # cudaErrorInvalidDeviceFunction, cudaErrorNoKernelImageForDevice: what a
@@ -86,6 +87,13 @@ def stream_args(t: torch.Tensor):
     if index is None:
         index = torch.cuda.current_device()
     return index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, queried once (the
+    kernels' launch plans are made from it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # the one compute capability the libraries are built for (NVCC_FLAGS)

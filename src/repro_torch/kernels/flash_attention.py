@@ -1,7 +1,7 @@
 """Flash-attention wrappers around the hand-written Hopper kernels.
 
   flash_fwd                csrc/flash_fwd.cu           replaces _fwd_kernel    (prefill, training forward)
-  flash_decode             csrc/flash_decode.cu        replaces _decode_kernel (contiguous decode)
+  flash_decode             csrc/flash_decode_paged.cu  replaces _decode_kernel (contiguous decode)
   flash_decode_paged       csrc/flash_decode_paged.cu  replaces _decode_paged_kernel (paged decode)
   flash_decode_spec        csrc/flash_decode_spec.cu   replaces _spec_decode_kernel (speculative verify)
   flash_decode_spec_paged  csrc/flash_decode_spec.cu   replaces _spec_decode_paged_kernel (paged verify)
@@ -28,10 +28,11 @@ kept f32 as a split pair of bf16 products; f32 inputs, with or without
 ``lowp``, run the f32 FFMA kernel. None of them falls back to another.
 
 Launch plans are made here on the host, from shapes and the card's SM
-count only (``fwd_groups``, ``decode_paged_plan``, ``spec_plan``), so that
-no launch reads a tensor back: the FFMA forward's groups of warps a block,
-and the split of each row's keys across blocks in the paged decode and the
-speculative verify (which also cuts its S*G rows into row blocks).
+count only (``fwd_groups``, ``decode_plan``, ``decode_paged_plan``,
+``spec_plan``), so that no launch reads a tensor back: the FFMA forward's
+groups of warps a block, and the split of each row's keys across blocks in
+both decode kernels and the speculative verify (which also cuts its S*G
+rows into row blocks).
 
 ``flash_attention_mha`` is differentiable: ``_FlashMHA`` is the
 counterpart of the JAX package's ``_flash_mha`` custom_vjp. Its forward runs
@@ -51,7 +52,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.backend import (attn_bf16, check_device, check_launch,
-                                         load_library, stream_args)
+                                         load_library, sm_count, stream_args)
 from repro_torch.kernels.ref import (ref_flash_attention_fwd, ref_flash_decode,
                                      ref_flash_decode_paged,
                                      ref_flash_decode_spec,
@@ -62,8 +63,8 @@ launches = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0,
 
 FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims flash_{fwd,bwd}.cu are instantiated for
 FWD_ROWS = 64      # query rows of a flash_fwd block, and keys of its tiles
-DECODE_CHUNK = 64  # positions a flash_decode_paged block stages at once
-DECODE_ROWS = 4    # query rows of a flash_decode_paged block (a row group)
+DECODE_CHUNK = 64  # positions a decode block stages at once
+DECODE_ROWS = 4    # query rows of a decode block (a row group)
 SPEC_ROWS = 24     # query rows of a flash_decode_spec block (a row block)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -97,27 +98,18 @@ def _fwd_lib():
 
 @functools.cache
 def _decode_lib():
-    lib = load_library("flash_decode")
-    lib.flash_decode.argtypes = [_P] * 5 + [_I] * 6 + \
-        [ctypes.c_float, _I, _I, _I, _P]
-    lib.flash_decode.restype = _I
-    lib.flash_decode_smem_bytes.argtypes = [_I, _I, _I]
-    lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
-    lib.flash_decode_max_smem_bytes.argtypes = []
-    lib.flash_decode_max_smem_bytes.restype = _I
-    return lib
-
-
-@functools.cache
-def _decode_paged_lib():
+    """Both decode kernels' library: the contiguous and the paged entry."""
     lib = load_library("flash_decode_paged")
+    lib.flash_decode.argtypes = [_P] * 8 + [_I] * 6 + \
+        [ctypes.c_float] + [_I] * 5 + [_P]
+    lib.flash_decode.restype = _I
     lib.flash_decode_paged.argtypes = [_P] * 9 + [_I] * 8 + \
         [ctypes.c_float] + [_I] * 5 + [_P]
     lib.flash_decode_paged.restype = _I
-    lib.flash_decode_paged_smem_bytes.argtypes = [_I] * 4
-    lib.flash_decode_paged_smem_bytes.restype = ctypes.c_longlong
-    lib.flash_decode_paged_max_smem_bytes.argtypes = []
-    lib.flash_decode_paged_max_smem_bytes.restype = _I
+    lib.flash_decode_smem_bytes.argtypes = [_I] * 4
+    lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
+    lib.flash_decode_max_smem_bytes.argtypes = []
+    lib.flash_decode_max_smem_bytes.restype = _I
     return lib
 
 
@@ -135,12 +127,6 @@ def _spec_lib():
     lib.flash_decode_spec_max_smem_bytes.argtypes = []
     lib.flash_decode_spec_max_smem_bytes.restype = _I
     return lib
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``, queried once."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fwd_block(block: int, n_q: int, BH: int) -> tuple:
@@ -172,6 +158,14 @@ def decode_paged_plan(T: int, bs: int, rows: int, sms: int) -> tuple:
     return -(-T // bps), bps
 
 
+def decode_plan(Smax: int, rows: int, sms: int) -> tuple:
+    """(splits, bps) of the contiguous decode: the cache of ``Smax``
+    positions read as a table of ``ceil(Smax / 64)`` blocks of
+    ``DECODE_CHUNK`` positions, cut as ``decode_paged_plan`` cuts a table
+    (``rows``: B*K*row groups)."""
+    return decode_paged_plan(-(-Smax // DECODE_CHUNK), DECODE_CHUNK, rows, sms)
+
+
 def spec_plan(B: int, K: int, R: int, T: int, bs: int, sms: int) -> tuple:
     """(row blocks, splits, bps) of a speculative verify of ``R`` = S*G rows
     a (b, kv head): the rows cut into row blocks of ``SPEC_ROWS``, and the
@@ -189,11 +183,11 @@ _ARRIVALS: dict = {}
 
 
 def _arrivals(device: int, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` int32 arrival counts for the split blocks of the paged
-    decode and the speculative verify: zero when made, and each call's last
-    block of a row resets its own, so calls of both kernels on one stream
-    share the buffer in turn. Kept per stream, so that calls on two streams
-    never share one."""
+    """At least ``n`` int32 arrival counts for the split blocks of both
+    decode kernels and the speculative verify: zero when made, and each
+    call's last block of a row resets its own, so calls of all of them on
+    one stream share the buffer in turn. Kept per stream, so that calls on
+    two streams never share one."""
     buf = _ARRIVALS.get((device, stream))
     if buf is None or buf.numel() < n:
         buf = torch.zeros(n, dtype=torch.int32, device=torch.device("cuda", device))
@@ -375,6 +369,51 @@ def _check_kernel_geometry(what: str, need: int, limit: int, hd: int, hdv: int,
                          f"cache must be aligned to 4 elements")
 
 
+def _decode_launch(what: str, q, k, v, table, lengths, scale: float,
+                   lowp: bool) -> torch.Tensor:
+    """Launch ``flash_decode`` (``table`` None: k, v a contiguous cache) or
+    ``flash_decode_paged`` on CUDA tensors: its plan, the splits' f32
+    workspace and the arrival counts. Returns (B, K, G, hdv)."""
+    B, K, G, hd = q.shape
+    hdv = v.shape[-1]
+    paged = table is not None
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty((B, K, G, hdv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _decode_lib()
+    device, stream = stream_args(q)
+    rows = B * K * -(-G // DECODE_ROWS)  # block rows: (b, kv head, row group)
+    if paged:
+        T, bs = table.shape[1], k.shape[1]
+        splits, bps = decode_paged_plan(T, bs, rows, sm_count(device))
+        extra = f", T={T}"
+    else:
+        splits, bps = decode_plan(k.shape[1], rows, sm_count(device))
+        extra = ""
+    _check_kernel_geometry(
+        what, lib.flash_decode_smem_bytes(hd, hdv, bps if paged else 0, q.element_size()),
+        lib.flash_decode_max_smem_bytes(), hd, hdv, k, extra)
+    # the splits' f32 partials (m and l, then acc), written before they are
+    # read: no fill
+    ws = [None, None, None]
+    if splits > 1:
+        ws = [torch.empty(B * K * splits * G * 2, dtype=torch.float32, device=q.device),
+              torch.empty(B * K * splits * G * hdv, dtype=torch.float32, device=q.device),
+              _arrivals(device, stream, rows)]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()] + \
+        ([table.data_ptr()] if paged else []) + \
+        [lengths.data_ptr(), out.data_ptr()] + \
+        [None if w is None else w.data_ptr() for w in ws]
+    dims = [B, K, G] + ([k.shape[0], bs, T] if paged else [k.shape[1]]) + [hd, hdv]
+    fn = lib.flash_decode_paged if paged else lib.flash_decode
+    rc = fn(*ptrs, *dims, float(scale), splits, bps, int(q.dtype == torch.bfloat16),
+            int(lowp), device, stream)
+    check_launch(lib, rc, what)
+    launches[what] += 1
+    return out
+
+
 def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
                  lowp: Optional[bool] = None):
     """Single-query flash decode over a ragged KV cache.
@@ -384,7 +423,11 @@ def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
     k: (B, Smax, K, hd)   v: (B, Smax, K, hdv) — the KV cache buffers.
     lengths: (B,) int or a scalar — row b attends cache positions
        < min(lengths[b], Smax); rows with length 0 return zeros.
-    Returns (B, K, G, hdv) in q's dtype.
+
+    The kernel is the paged decode's over the cache read as a table of
+    64-position blocks (``decode_plan``): each row's keys split across
+    blocks, the last block of a row to finish merging the splits' f32
+    partials. Returns (B, K, G, hdv) in q's dtype.
     """
     B, K, G, hd = q.shape
     Smax = k.shape[1]
@@ -399,23 +442,7 @@ def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
     lengths = _lengths(lengths, B, q.device)
     if q.device.type == "cpu":
         return ref_flash_decode(q, k, v, lengths, scale=scale, lowp=lowp)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((B, K, G, hdv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib = _decode_lib()
-    _check_kernel_geometry("flash_decode", lib.flash_decode_smem_bytes(G, hd, hdv),
-                           lib.flash_decode_max_smem_bytes(), hd, hdv, k,
-                           f", G={G}")
-    device, stream = stream_args(q)
-    rc = lib.flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          lengths.data_ptr(), out.data_ptr(), B, K, G, Smax,
-                          hd, hdv, float(scale),
-                          int(q.dtype == torch.bfloat16), int(lowp), device,
-                          stream)
-    check_launch(lib, rc, "flash_decode")
-    launches["flash_decode"] += 1
-    return out
+    return _decode_launch("flash_decode", q, k, v, None, lengths, scale, lowp)
 
 
 def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
@@ -455,36 +482,8 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     if q.device.type == "cpu":
         return ref_flash_decode_paged(q, k_pool, v_pool, table.clamp(0, NB - 1),
                                       lengths, scale=scale, lowp=lowp)
-    T = table.shape[1]
-    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
-    out = torch.empty((B, K, G, hdv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib = _decode_paged_lib()
-    device, stream = stream_args(q)
-    rows = B * K * -(-G // DECODE_ROWS)  # block rows: (b, kv head, row group)
-    splits, bps = decode_paged_plan(T, bs, rows, sm_count(device))
-    _check_kernel_geometry(
-        "flash_decode_paged",
-        lib.flash_decode_paged_smem_bytes(hd, hdv, bps, q.element_size()),
-        lib.flash_decode_paged_max_smem_bytes(), hd, hdv, k_pool,
-        f", T={T}")
-    # the splits' f32 partials (m and l, then acc), written before they are
-    # read: no fill
-    ws = [None, None, None]
-    if splits > 1:
-        ws = [torch.empty(B * K * splits * G * 2, dtype=torch.float32, device=q.device),
-              torch.empty(B * K * splits * G * hdv, dtype=torch.float32, device=q.device),
-              _arrivals(device, stream, rows)]
-    rc = lib.flash_decode_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(),
-        *(None if w is None else w.data_ptr() for w in ws), B, K, G, NB, bs, T, hd,
-        hdv, float(scale), splits, bps, int(q.dtype == torch.bfloat16),
-        int(lowp), device, stream)
-    check_launch(lib, rc, "flash_decode_paged")
-    launches["flash_decode_paged"] += 1
-    return out
+    return _decode_launch("flash_decode_paged", q, k_pool, v_pool, table, lengths,
+                          scale, lowp)
 
 
 def _spec_launch(what: str, q, k, v, table, lengths, scale: float,

@@ -224,6 +224,57 @@ def test_flash_decode_matches_plain(dtype, lowp, K, G, hd, hdv, scale):
     assert not out[0].any(), "a length-0 row must return zeros"
 
 
+def _check_decode(dtype, lowp, B, K, G, hd, hdv, Smax, lens, seed, scale=None):
+    """flash_decode against the plain version on one seeded input, launched
+    once (one count, whatever its split); returns the inputs and the
+    output."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, K, G, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Smax, K, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Smax, K, hdv, generator=g, device=dev).to(dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = fa.launches["flash_decode"]
+    out = fa.flash_decode(q, k, v, lens, scale=scale, lowp=lowp)
+    assert fa.launches["flash_decode"] == before + 1
+    want = ref.ref_flash_decode(q, k, v, lens, scale=scale, lowp=lowp)
+    torch.testing.assert_close(out.float(), want.float(), **(BF16 if lowp else F32))
+    assert not out[lens == 0].any(), "a length-0 row must return zeros"
+    return (q, k, v, lens), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", CASES)
+@pytest.mark.parametrize("K,G,hd,hdv,Smax", [(8, 4, 64, 64, 8192), (8, 4, 64, 64, 1024),
+                                             (2, 12, 16, 128, 4100), (2, 5, 32, 16, 1030),
+                                             (8, 4, 64, 64, 64)])
+def test_flash_decode_with_many_splits(dtype, lowp, K, G, hd, hdv, Smax):
+    """The contiguous cache cut into many splits (Smax 8192: 268 MB of f32
+    cache at the serve shape; 4100 and 1030: a short last chunk) and into
+    one (Smax 64, no partials), at lengths 0, 1, one below, at and one past
+    a split edge, at Smax and past it."""
+    B = 7
+    splits, bps = fa.decode_plan(Smax, B * K * -(-G // fa.DECODE_ROWS),
+                                 torch.cuda.get_device_properties(_device()).multi_processor_count)
+    assert (splits > 1) == (Smax > fa.DECODE_CHUNK)
+    edge = min(bps * fa.DECODE_CHUNK, Smax)
+    lens = [0, 1, edge - 1, edge, min(edge + 1, Smax), Smax, Smax + 9]
+    _check_decode(dtype, lowp, B, K, G, hd, hdv, Smax, lens, seed=Smax + G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Smax", [1024, 8192])
+def test_flash_decode_is_deterministic(Smax):
+    """Two calls give the same bits: each split sums in a fixed order, and
+    the merge takes the splits in order."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(Smax)
+    lens = torch.randint(0, Smax + 2, (8,), generator=g, device=dev, dtype=torch.int32)
+    args, first = _check_decode(torch.float32, False, 8, 8, 4, 64, 64, Smax,
+                                lens.tolist(), seed=Smax)
+    assert torch.equal(first, fa.flash_decode(*args))
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     dev = _device()
@@ -399,6 +450,39 @@ def test_split_decode_kernels_share_the_arrival_counts():
 
 
 @pytest.mark.cuda
+def test_contiguous_and_paged_split_kernels_share_the_arrival_counts():
+    """flash_decode, flash_decode_paged and flash_decode_spec run back to
+    back on one stream, all split, share the stream's arrival counts: each
+    gives the bits it gives alone, and the counts are zero after them."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, K, G, S, hd, bs, T = 8, 8, 4, 5, 64, 16, 64
+    Smax = bs * T
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fa.decode_plan(Smax, B * K, sms)[0] > 1
+    assert fa.decode_paged_plan(T, bs, B * K, sms)[0] > 1
+    q1 = torch.randn(B, K, G, hd, generator=g, device=dev)
+    q2 = torch.randn(B, K, S, G, hd, generator=g, device=dev)
+    k, v = (torch.randn(B, Smax, K, hd, generator=g, device=dev) for _ in range(2))
+    kp, vp, table = _pool_and_table(g, dev, torch.float32, B, K, hd, hd, bs, T)
+    lens = torch.tensor([0, 1, 193, 300, 511, 700, 1019, 1024], dtype=torch.int32,
+                        device=dev)
+    calls = [lambda: fa.flash_decode(q1, k, v, lens),
+             lambda: fa.flash_decode_paged(q1, kp, vp, table, lens),
+             lambda: fa.flash_decode_spec(q2, k, v, lens)]
+    alone = []
+    for call in calls:
+        alone.append(call())
+        torch.cuda.synchronize()
+    for _ in range(3):
+        together = [call() for call in calls]
+    assert all(torch.equal(a, b) for a, b in zip(together, alone))
+    device, stream = dev.index or torch.cuda.current_device(), \
+        torch.cuda.current_stream(dev).cuda_stream
+    assert not fa._ARRIVALS[(device, stream)].any()
+
+
+@pytest.mark.cuda
 def test_decode_wrappers_refuse_what_the_kernels_do_not_take():
     dev = _device()
     table = torch.zeros(1, 2, dtype=torch.int32, device=dev)
@@ -424,10 +508,9 @@ def test_decode_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("kernel", ["flash_decode", "flash_decode_paged",
                                     "flash_decode_spec", "flash_decode_spec_paged"])
 def test_decode_kernels_past_65535_rows(kernel, dtype, lowp):
-    """B = 65536 with a short cache runs and matches the plain version: the
-    contiguous decode's grid puts b on grid.y, so its launch goes in two
-    chunks of rows; the paged decode's and both verify kernels' grids are
-    1-D. One launch is counted per call."""
+    """B = 65536 with a short cache runs and matches the plain version:
+    every decode and verify kernel has a 1-D grid, past what grid.y would
+    hold. One launch is counted per call."""
     dev = _device()
     g = torch.Generator(device=dev).manual_seed(65536)
     B, K, G, hd, bs, T, S = 65536, 1, 2, 16, 4, 2, 2
@@ -868,6 +951,48 @@ def test_rmsnorm_fwd_scale_dtypes_and_an_unaligned_view(dtype, sdtype, offset):
     y = rn.rmsnorm_fwd(x, s)
     torch.testing.assert_close(y.float(), ref.ref_rmsnorm(x, s).float(),
                                **(BF16 if dtype == torch.bfloat16 else F32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,sdtype,rows,d,offset", [
+    (torch.float32, torch.float32, 4097, 2048, 0),   # a block a row, 2 vectors a thread
+    (torch.bfloat16, torch.bfloat16, 4097, 2048, 0),
+    (torch.float32, torch.bfloat16, 4097, 512, 0),   # a warp a row, bf16 scale read as is
+    (torch.bfloat16, torch.float32, 4097, 96, 0),    # several rows a warp
+    (torch.float32, torch.float32, 4097, 96, 0),
+    (torch.float32, torch.float32, 301, 512, 1),     # an unaligned view: scalar loads
+    (torch.bfloat16, torch.bfloat16, 301, 2048, 3),
+    (torch.float32, torch.float16, 33, 8192, 0),     # 8 vectors a thread, scale cast
+    (torch.float32, torch.float32, 33, 20000, 0),    # a row read twice
+])
+def test_rmsnorm_bwd_is_deterministic_at_each_row_split(dtype, sdtype, rows, d, offset):
+    """rmsnorm_bwd against the plain version at each of its row splits,
+    with rows that fill no grid evenly (4097), on views ``offset`` elements
+    into their storage, with scale in another dtype than x; a second call
+    gives the same bits (each block's partials, and their sum, in a fixed
+    order)."""
+    from repro_torch.kernels import rmsnorm as rn
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(rows + d + offset)
+
+    def view():
+        flat = torch.randn(rows * d + offset, generator=g, device=dev).to(dtype)
+        return flat[offset:].view(rows, d)
+
+    x, cot = view(), view()
+    s = torch.randn(d, generator=g, device=dev).to(sdtype)
+    before = rn.launches["rmsnorm_bwd"]
+    dx, ds = rn.rmsnorm_bwd(x, s, cot)
+    assert rn.launches["rmsnorm_bwd"] == before + 1
+    assert dx.dtype == dtype and ds.dtype == sdtype
+    want_dx, want_ds = ref.ref_rmsnorm_bwd(x, s, cot)
+    tol = F32 if dtype == sdtype == torch.float32 else BF16
+    torch.testing.assert_close(dx.float(), want_dx.float(), **tol)
+    # dscale sums the rows in another order: relative to its largest element
+    top = float(want_ds.float().abs().max())
+    torch.testing.assert_close(ds.float() / top, want_ds.float() / top, **tol)
+    dx2, ds2 = rn.rmsnorm_bwd(x, s, cot)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@ neither JAX nor the JAX package.
 
 An AST scan of every ``import`` and ``from ... import`` in
 ``src/repro_torch/**/*.py``, ``chip_smoke.py``, ``bench_flash_bwd.py``,
-``bench_flash_fwd.py``, ``bench_depthwise_rmsnorm.py``,
+``bench_flash_fwd.py``, ``bench_depthwise_rmsnorm.py``, ``bench_decode.py``,
 ``bench_decode_paged.py`` and ``bench_decode_spec.py``:
 a module named ``jax`` (or under it) or ``repro`` (or under it) fails the
 test. Only the tests import both packages.
@@ -16,8 +16,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_flash_bwd.py", ROOT / "bench_flash_fwd.py",
-    ROOT / "bench_depthwise_rmsnorm.py", ROOT / "bench_decode_paged.py",
-    ROOT / "bench_decode_spec.py"]
+    ROOT / "bench_depthwise_rmsnorm.py", ROOT / "bench_decode.py",
+    ROOT / "bench_decode_paged.py", ROOT / "bench_decode_spec.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
