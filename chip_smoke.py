@@ -29,9 +29,16 @@ Phases (any failure raises and the script exits non-zero):
    drawn by the port from a seeded generator, through
    ``ContinuousBatchingEngine(attn_impl="pallas")``: 8 slots, 16 requests,
    ragged prompts of 192-320 tokens, 32 greedy tokens each, max_seq 1024.
-   The kernels' launch counts are set to 0 just before this run and read
-   just after; both must be > 0. Prints a ``torch.profiler`` breakdown of
-   one decode step, with the device ms of its flash_decode launches.
+   The decode step runs compiled, as by default (``launch/steps.
+   CompiledStep``: its first call eager, the second captures a CUDA graph,
+   later calls replay it): the requests are served eager, captured,
+   captured, eager (``jit=False`` for eager), the streams of all four
+   token-identical and their launch counts equal; each run's tok/s, the
+   capture ms and the peak memory with the graphs alive are printed. The
+   kernels' launch counts are set to 0 just before the first captured run
+   and read just after; both must be > 0. Prints a ``torch.profiler``
+   breakdown of one captured decode step (and of an eager one), with the
+   device ms of its flash_decode launches.
 5. Reference: the same requests through the plain attention path
    (``attn_impl="naive"``) on the card. Streams must be token-identical; a
    divergence is tolerated (and printed) only where the plain path's top-2
@@ -39,13 +46,20 @@ Phases (any failure raises and the script exits non-zero):
 
 6. Train: llama3.2-1b at full width and depth, f32 params from a seeded
    generator, adam lr 3e-4, batch 4 x 512 tokens, 6 steps through
-   ``TrainSession.run`` on a static rung with ``attn_impl="pallas"``. The
-   launch counts are set to 0 just before and read just after: flash_fwd,
-   flash_bwd_dq and flash_bwd_dkv must each read 16 x 6. The same steps with
-   ``attn_impl="naive"``: per-step losses agree to 1e-3 relative, and the
-   first step's gradients (taken apart from both runs) to 1e-4 norm-wise.
-   Prints the median step time of steps 2-6, tokens/s, the peak memory and a
-   ``torch.profiler`` breakdown of one step.
+   ``TrainSession.run`` on a static rung with ``attn_impl="pallas"``,
+   eager and then captured (``Rung.jitted_step``; the first step of a
+   captured run is eager, the second captures). The launch counts are
+   set to 0 just before each and read just after: flash_fwd, flash_bwd_dq
+   and flash_bwd_dkv must each read 16 x 6. Captured and eager losses agree
+   to 1e-3 relative, and a replayed step's gradients (an optimizer that
+   records them, the third call; one sequence of 512) the eager step's to
+   1e-4 norm-wise. The
+   same steps with ``attn_impl="naive"``, captured: per-step losses agree
+   to 1e-3 relative, and the first step's gradients (taken apart from both
+   runs) to 1e-4 norm-wise. Prints the median step time (steps 3-6
+   captured, 2-6 eager), tokens/s, the capture ms, the peak memory with the
+   graph alive and a ``torch.profiler`` breakdown of one captured and one
+   eager step.
 7. Checkpoint and resume: full width cut to 2 layers (the state of the full
    depth is 15 GB, too slow to write and read back here); 3 steps with a
    checkpoint every 3, then a resumed session to step 6. Losses of steps
@@ -55,18 +69,24 @@ Phases (any failure raises and the script exits non-zero):
    wall-clock latencies. At least one interference downgrade, every
    migration in place, every loss finite, and each step launches the three
    attention kernels 16 x its microbatch count times each (the bf16 rung's
-   forward and backward run the tensor-core kernels without lowp). Prints
-   the median step ms of each rung and a ``torch.profiler`` breakdown of
-   one more step on the last rung, with its device-busy ms and the forward
-   and backward kernels' device ms.
-9. Paged serve: llama3.2-1b at full width, f32, 8 slots, max_seq 1024,
+   forward and backward run the tensor-core kernels without lowp), replays
+   included. The rungs' steps are captured into one graph pool of the
+   session; a rung's first two steps (eager, capture) are tagged warmup.
+   Prints the median steady step ms of each rung, the capture ms, the peak
+   memory with the graphs alive and a ``torch.profiler`` breakdown of one
+   more step on the last rung, captured and eager, with its device-busy ms
+   and the forward and backward kernels' device ms.
+9. Paged serve: llama3.2-1b at full width cut to 8 layers (``PAGED``:
+   the eager paged prefill chunks set these phases' time, and the
+   comparisons with eager runs doubled them), f32, 8 slots, max_seq 1024,
    ``kv_layout="paged"`` with 16-position blocks, on the phase-4 requests
    with half of them sharing a 128-token prefix and two of them identical
    (prefix hits, skipped chunks, a read-only recompute and copy-on-write).
    Served with ``attn_impl="pallas"`` and ``"naive"``; flash_decode_paged
    launches > 0, prefill_chunks_skipped > 0, cow_copies >= 1, and both
    streams meet phase 5's rule against a contiguous pallas run of the same
-   requests.
+   requests. The pallas run is compared with an eager run before it, as
+   are phases 10 and 11's runs.
 10. Swap: the same paged run with ``admission_policy="swap"`` and the pool
    cut to about half the worst-case demand of 8 residents: swap_outs > 0,
    swap_ins == swap_outs, streams under the same rule against phase 9's.
@@ -90,14 +110,15 @@ Phases (any failure raises and the script exits non-zero):
 13. CNN training: each model through ``TrainSession`` on one static rung
    (``attn_impl="naive"``: the depthwise kernel has no gradient, as in the
    reference), adam lr 1e-3, 8 steps on one fixed batch of 128 (the first of
-   the seeded stream): losses finite and the last below the first; step ms,
-   images/s and a profiled step. With
+   the seeded stream), captured and then eager: losses finite and the last
+   below the first; step ms, images/s, capture ms, peak memory and a
+   profiled step of each. With
    ``attn_impl="pallas"`` MobileNetV2 and ShuffleNetV2 must raise at the
    first backward.
 14. CNN adaptive: MobileNetV2 on ``default_rung_ladder(include_bf16=False)``
    (the reference's conv refuses the bf16 rung's mixed dtypes) under
-   ``2:6:3.0``, 10 steps, wall-clock latencies: at least one migration, all
-   in place.
+   ``2:6:3.0``, 10 steps, wall-clock latencies, captured: at least one
+   migration, all in place; capture ms and peak memory.
 15. RMSNorm: ``ops.rmsnorm`` forward and forward+backward at
    ``benchmarks/kernel_bench.py``'s shapes, 4096 x 2048 and 512 x 512, as
    its ``bench_rmsnorm`` drives the reference; the launch counts of both
@@ -158,7 +179,7 @@ LOGIT_TOL = 1e-3  # pallas vs naive logits differ by f32 summation order only
 
 SERVE = dict(slots=8, requests=16, prompt_lo=192, prompt_hi=320, gen=32,
              max_seq=1024, seed=0)
-PAGED = dict(block_size=16, shared_prefix=128, draft_depth=4)
+PAGED = dict(block_size=16, shared_prefix=128, draft_depth=4, layers=8)
 TRAIN = dict(batch=4, seq=512, steps=6, lr=3e-4, seed=0)
 LOSS_RTOL = 1e-3      # pallas vs naive per-step losses (f32 summation order)
 GRAD_RTOL = 1e-4      # first-step gradients, norm-wise
@@ -769,13 +790,17 @@ def run_engine(serve, model, params, reqs, **engine_kw):
 
 
 def profile_decode(serve, model, params, reqs, steps: int = 4, label="",
-                   budget: int = 6, **engine_kw):
-    """Where a batched decode step's time goes: admit one request per slot,
-    then trace ``steps`` decode steps with torch.profiler. Prints the host
-    time per step, the device time per step (sum of kernel times), the
-    kernels with the most device time and the device time of the decode
-    attention kernels (every kernel named ``flash_decode*``). Returns (host
-    ms, device ms, decode-attention device ms) a step."""
+                   budget: int = 12, eager: bool = False, **engine_kw):
+    """Where a batched decode step's time goes: admit one request per slot
+    and run two steps (the compiled step's eager first call and its
+    capture), then trace ``steps`` decode steps with torch.profiler; with
+    ``eager``, put eager builds (``jit=False``) of the same steps in the
+    engine's place and trace ``steps`` more. Prints the host time per step,
+    the device time per step (sum of kernel times), the kernels with the
+    most device time and the device time of the decode attention kernels
+    (every kernel named ``flash_decode*``). Returns (host ms, device ms,
+    decode-attention device ms) a step, captured, and with ``eager`` the
+    eager triple after it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     engine = serve.ContinuousBatchingEngine(model, params,
@@ -786,27 +811,90 @@ def profile_decode(serve, model, params, reqs, steps: int = 4, label="",
         engine.submit(serve.Request(uid=r.uid, prompt=r.prompt,
                                     max_new_tokens=budget))
     engine.step()  # admits every slot and runs the first decode
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
+    engine.step()  # the capture, where the step is compiled
+
+    def trace(mode):
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # kernels only: an aten op's own entry repeats its kernels' device time
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    print(f"[profile] decode step ({model.build_kwargs['impl']}{label}): host "
-          f"{host_ms:.3f} ms/step, device busy {dev_ms:.3f} ms/step "
-          f"({100 * dev_ms / host_ms:.1f}% of the step)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
-              f"{e.count // steps:5d} calls/step  {e.key[:90]}")
-    attn = [e for e in events if "flash_decode" in e.key]
-    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
-    print(f"[profile]   flash_decode* kernels: {attn_ms:.4f} ms/step in "
-          f"{sum(e.count for e in attn) // steps} calls/step")
-    return host_ms, dev_ms, attn_ms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        # kernels only: an aten op's own entry repeats its kernels' device time
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+        print(f"[profile] decode step ({model.build_kwargs['impl']}{label}, {mode}): "
+              f"host {host_ms:.3f} ms/step, device busy {dev_ms:.3f} ms/step "
+              f"({100 * dev_ms / host_ms:.1f}% of the step)")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8 if mode == "captured" else 3]:
+            print(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
+                  f"{e.count // steps:5d} calls/step  {e.key[:90]}")
+        attn = [e for e in events if "flash_decode" in e.key]
+        attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
+        print(f"[profile]   flash_decode* kernels: {attn_ms:.4f} ms/step in "
+              f"{sum(e.count for e in attn) // steps} calls/step")
+        return host_ms, dev_ms, attn_ms
+
+    out = trace("captured" if engine_kw.get("jit", True) else "eager")
+    if not eager:
+        return out
+    paged = engine.kv is not None
+    engine._decode = (serve.build_paged_decode_step if paged
+                      else serve.build_decode_step)(model, jit=False)
+    engine._spec_decode = (serve.build_paged_spec_decode_step if paged
+                           else serve.build_spec_decode_step)(model, jit=False)
+    return out, trace("eager")
+
+
+def compiled_vs_eager(fa, serve, model, params, reqs, label,
+                      order=(False, True, True, False), **engine_kw):
+    """The same requests served eager, captured, captured, eager (``order``,
+    ``jit`` of each run; one engine each; the launch counts set to 0 just
+    before each run and read just after, the peak memory likewise).
+    Captured and eager streams must be token-identical and their launch
+    counts equal. Returns (the first captured run: its finished requests,
+    engine, wall s and launch counts; the JSON object of the runs: tok/s of
+    each, the capture ms, the peak memory with the graphs alive)."""
+    runs = {True: [], False: []}
+    for jit in order:
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        done, engine, wall = run_engine(serve, model, params, reqs, jit=jit,
+                                        **engine_kw)
+        steps = [engine._decode, engine._spec_decode]
+        runs[jit].append(dict(
+            done=done, engine=engine, wall=wall, launches=fa.all_launches(),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            capture_ms=1e3 * sum(getattr(f, "capture_s", 0.0) for f in steps),
+            captures=sum(getattr(f, "captures", 0) for f in steps),
+            tok_s=engine.tokens_out / wall))
+        check(sum(getattr(f, "replays", 0) for f in steps) > 0 if jit else
+              not any(hasattr(f, "replays") for f in steps),
+              f"{label}: jit={jit} but the steps replayed {[f for f in steps]}")
+    want = runs[True][0]
+    for r in runs[True] + runs[False]:
+        check(streams_of(r["done"]) == streams_of(want["done"]),
+              f"{label}: captured and eager streams differ")
+        check(r["launches"] == want["launches"],
+              f"{label}: launches {r['launches']} != {want['launches']}")
+    out = {"tok_s_captured": [r["tok_s"] for r in runs[True]],
+           "tok_s_eager": [r["tok_s"] for r in runs[False]],
+           "capture_ms": [r["capture_ms"] for r in runs[True]],
+           "captures": runs[True][0]["captures"],
+           "peak_memory_gb_captured": max(r["peak_gb"] for r in runs[True]),
+           "peak_memory_gb_eager": max(r["peak_gb"] for r in runs[False]),
+           "identical_to_eager": True}
+    print(f"[{label}] captured vs eager ({', '.join('captured' if j else 'eager' for j in order)}): tok/s "
+          f"{[round(x, 1) for x in out['tok_s_captured']]} captured, "
+          f"{[round(x, 1) for x in out['tok_s_eager']]} eager; streams "
+          f"token-identical, launches equal; {out['captures']} captures in "
+          f"{[round(x, 1) for x in out['capture_ms']]} ms; peak memory "
+          f"{out['peak_memory_gb_captured']:.2f} GB captured, "
+          f"{out['peak_memory_gb_eager']:.2f} GB eager", flush=True)
+    for r in runs[True][1:] + runs[False]:
+        del r["engine"]
+    return (want["done"], want["engine"], want["wall"], want["launches"]), out
 
 
 def profile_paged_prefill(serve, model, params, req, **engine_kw):
@@ -910,12 +998,21 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
     params = model.init(model.generator(0))
     naive = build_model(cfg, impl="naive", device="cuda")
     paged_kw = dict(kv_layout="paged", block_size=PAGED["block_size"])
-    launches = {}
+    launches, compiled = {}, {}
 
-    def run(path, m, rs, **kw):
-        fa.reset_launches()
-        done, engine, wall = run_engine(serve, m, params, rs, **kw)
-        counts = dict(fa.launches)
+    def run(path, m, rs, compare=False, **kw):
+        """One captured run of ``rs``; with ``compare``, beside an eager one
+        before it (``compiled_vs_eager``: phase 4 holds the interleaved
+        four; the paged runs spend most of their time in the eager paged
+        prefill)."""
+        if compare:
+            (done, engine, wall, counts), compiled[path] = compiled_vs_eager(
+                fa, serve, m, params, rs, path,
+                order=(False, True), **kw)
+        else:
+            fa.reset_launches()
+            done, engine, wall = run_engine(serve, m, params, rs, **kw)
+            counts = fa.all_launches()
         if path:
             launches[path] = counts
         st = engine.stats()
@@ -926,9 +1023,12 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
         return streams_of(done), engine, wall, st
 
     # -- phase 9: paged serve with prefix sharing ----------------------------
+    print(f"[serve_paged] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}",
+          flush=True)
     shared = shared_prefix_requests(serve, reqs)
     ref_streams, _, _, _ = run(None, model, shared)  # contiguous pallas
-    paged, eng_p, wall_p, st_p = run("serve_paged", model, shared, **paged_kw)
+    paged, eng_p, wall_p, st_p = run("serve_paged", model, shared, compare=True,
+                                     **paged_kw)
     check(launches["serve_paged"]["flash_decode_paged"] > 0,
           "the paged run did not launch flash_decode_paged")
     check(st_p["prefill_chunks_skipped"] > 0, f"no prefix chunk skipped: {st_p}")
@@ -937,7 +1037,8 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
     paged_n, eng_pn, wall_pn, _ = run("serve_paged_naive", naive, shared, **paged_kw)
     ident_pn = same_streams("serve_paged_naive", paged_n, ref_streams, naive,
                             params, shared)
-    prof_p = profile_decode(serve, model, params, reqs, label=", paged", **paged_kw)
+    prof_p, prof_pe = profile_decode(serve, model, params, reqs, label=", paged",
+                                     eager=True, **paged_kw)
     prof_pre = profile_paged_prefill(serve, model, params, reqs[0], **paged_kw)
 
     # -- phase 10: swap over a pool cut to half the worst case ----------------
@@ -947,8 +1048,8 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
     demand = sum(worst[-SERVE["slots"]:])
     num_blocks = demand // 2 + 1
     swapped, eng_s, wall_s, st_s = run(
-        "swap", model, shared, admission_policy="swap", num_blocks=num_blocks,
-        **paged_kw)
+        "swap", model, shared, compare=True, admission_policy="swap",
+        num_blocks=num_blocks, **paged_kw)
     check(st_s["swap_outs"] > 0 and st_s["swap_ins"] == st_s["swap_outs"]
           and st_s["swapped"] == 0, f"swap counts: {st_s}")
     check(launches["swap"]["flash_decode_paged"] > 0, "swap run: no paged kernel")
@@ -961,7 +1062,7 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
     for path, kw, kname in (("spec_contig", {}, "flash_decode_spec"),
                             ("spec_paged", paged_kw, "flash_decode_spec_paged")
                             )[:2 if spec_phase else 0]:
-        streams, eng, wall, st = run(path, model, reqs,
+        streams, eng, wall, st = run(path, model, reqs, compare=True,
                                      draft_depth=PAGED["draft_depth"], **kw)
         check(launches[path][kname] > 0, f"{path} did not launch {kname}")
         ident = same_streams(path, streams, contig_streams, naive, params, reqs)
@@ -980,16 +1081,20 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
                       "spec_accepted": st["spec_accepted"],
                       "spec_drafted": st["spec_drafted"],
                       "acceptance": st["spec_acceptance"],
-                      "identical_streams": ident, "launches": launches[path]}
+                      "identical_streams": ident, "launches": launches[path],
+                      "compiled": compiled[path]}
     if spec_phase:
-        prof_spec = profile_decode(serve, model, params, reqs, label=", spec paged",
-                                   budget=60, draft_depth=PAGED["draft_depth"],
-                                   **paged_kw)
+        prof_spec, prof_spec_e = profile_decode(
+            serve, model, params, reqs, label=", spec paged", budget=60, eager=True,
+            draft_depth=PAGED["draft_depth"], **paged_kw)
         spec["decode_step_profile_paged"] = {"host_ms": prof_spec[0],
-                                             "device_ms": prof_spec[1]}
+                                             "device_ms": prof_spec[1],
+                                             "eager_host_ms": prof_spec_e[0],
+                                             "eager_device_ms": prof_spec_e[1]}
         spec["draft_depth"] = PAGED["draft_depth"]
 
     paged_out = {
+        "n_layers": cfg.n_layers,
         "block_size": bs, "num_blocks": st_p["pool"]["num_blocks"],
         "tok_s": eng_p.tokens_out / wall_p, "wall_s": wall_p,
         "naive_tok_s": eng_pn.tokens_out / wall_pn,
@@ -1000,6 +1105,9 @@ def paged_and_spec_phases(fa, serve, build_model, cfg, reqs, contig_streams,
         "cow_copies": st_p["cow_copies"], "peak_blocks": st_p["pool"]["peak_blocks_in_use"],
         "prefix_hit_rate": st_p["pool"]["prefix"]["hit_rate"],
         "decode_step_host_ms": prof_p[0], "decode_step_device_ms": prof_p[1],
+        "eager_decode_step_host_ms": prof_pe[0],
+        "eager_decode_step_device_ms": prof_pe[1],
+        "compiled": {p: compiled[p] for p in ("serve_paged", "swap")},
         "prefill_profile": {"chunks": prof_pre[0], "host_ms_per_chunk": prof_pre[1],
                             "device_ms_per_chunk": prof_pre[2]},
         "swap": {"num_blocks": num_blocks, "worst_case_demand": demand,
@@ -1039,12 +1147,11 @@ def serve_phases(fa, serve, build_model, cfg, reqs):
     print(f"[serve] prefill of 64 tokens: pallas vs naive max |dlogit| {diff:.3g}")
 
     run_engine(serve, model, params, reqs[:1])  # warm-up: cuBLAS handles, allocator
-    fa.reset_launches()
-    done, engine, wall = run_engine(serve, model, params, reqs)
-    launches = fa.all_launches()
+    (done, engine, wall, launches), compiled = compiled_vs_eager(
+        fa, serve, model, params, reqs, "serve")
     serve_launches = dict(launches)
     tok_s = engine.tokens_out / wall
-    print(f"[serve] pallas: {engine.tokens_out} tokens in {wall:.3f} s "
+    print(f"[serve] pallas, captured: {engine.tokens_out} tokens in {wall:.3f} s "
           f"({tok_s:.1f} tok/s), {engine.decode_steps} decode steps, occupancy "
           f"{engine.occupancy:.3f}, launches {launches}", flush=True)
     check(launches["flash_fwd"] > 0 and launches["flash_decode"] > 0,
@@ -1055,8 +1162,8 @@ def serve_phases(fa, serve, build_model, cfg, reqs):
               and all(0 <= t < cfg.vocab_size for t in f.tokens),
               f"request {u}: {len(f.tokens)} tokens, reason {f.reason}")
 
-    prof = {impl: profile_decode(serve, m, params, reqs)
-            for impl, m in (("pallas", model), ("naive", naive))}
+    prof_pallas, prof_eager = profile_decode(serve, model, params, reqs, eager=True)
+    prof = {"pallas": prof_pallas, "naive": profile_decode(serve, naive, params, reqs)}
 
     # -- phase 5: the same requests through the plain path ---------------------
     done_n, engine_n, wall_n = run_engine(serve, naive, params, reqs)
@@ -1072,7 +1179,9 @@ def serve_phases(fa, serve, build_model, cfg, reqs):
         "identical_streams": identical,
         "decode_step_host_ms": {k: v[0] for k, v in prof.items()},
         "decode_step_device_ms": {k: v[1] for k, v in prof.items()},
-        "decode_step_flash_decode_ms": prof["pallas"][2]}
+        "decode_step_flash_decode_ms": prof["pallas"][2],
+        "compiled": dict(compiled, eager_decode_step_host_ms=prof_eager[0],
+                         eager_decode_step_device_ms=prof_eager[1])}
     contig_streams = streams_of(done)
     del model, naive, params, engine, engine_n, done, done_n, lk, ln, ck, cn
     free_cuda()
@@ -1110,6 +1219,52 @@ def grad_agreement(build_model, cfg, batch, tree_leaves, device="cuda"):
     return losses, (num / den) ** 0.5
 
 
+def recording_optimizer():
+    """An optimizer that copies each step's gradients into its state and
+    updates nothing, so that a captured train step's gradients can be read."""
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.tree import tree_map
+
+    def init(params):
+        return tree_map(torch.zeros_like, params)
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        tree_map(lambda s, g: s.copy_(g), state, grads)
+        return tree_map(lambda g: g.new_zeros(()), grads), state  # broadcast 0
+
+    return Optimizer("record_grads", init, update, 4)
+
+
+def captured_grad_agreement(build_model, cfg, batch, tree_leaves, device="cuda"):
+    """Norm-wise relative error of the step-0 gradients of a replayed train
+    step (the third call: eager, capture, replay) against an eager step's,
+    both from the seeded initial parameters, through the kernels (phase 6
+    passes the first sequence of its first batch)."""
+    from repro_torch.engine.rungs import Rung
+    from repro_torch.launch.steps import init_train_state
+    grads = {}
+    for jit in (True, False):
+        rung = Rung(name="static", attn_impl="pallas")
+        model = rung.build_model(cfg, device)
+        opt = recording_optimizer()
+        state = init_train_state(model, opt, model.generator(TRAIN["seed"]))
+        step = rung.jitted_step(cfg, opt, device=device, jit=jit)
+        for _ in range(3 if jit else 1):
+            state, _ = step(state, batch)
+        if jit:
+            check(step.last_call == "replay", "the gradient step did not replay")
+        grads[jit] = tree_leaves(state["opt"])
+        del state, step, rung, model
+        free_cuda()
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(grads[True], grads[False]))
+    den = sum(float(b.double().square().sum()) for b in grads[False])
+    del grads
+    free_cuda()
+    return (num / den) ** 0.5
+
+
 def run_session(TrainSession, rungs, cfg, batch_fn, steps, *, start=0,
                 state=None, device="cuda", **kw):
     sess = TrainSession(cfg, rungs, optimizer=kw.pop("optimizer"),
@@ -1128,10 +1283,14 @@ def step_ms(res) -> list:
 
 def profile_train_step(step_fn, state, batch):
     """Where one train step's time goes: ``torch.profiler`` over one step
-    (after the run warmed everything up). Returns (host ms, device busy ms,
+    (after the run warmed everything up; a compiled step first runs until
+    its next call replays). Returns (host ms, device busy ms,
     [(ms, calls, kernel name)] of the kernels with the most device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    compiles = getattr(step_fn, "compiles", None)
+    while compiles and compiles(state, batch):  # at most an eager call and a capture
+        state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1168,24 +1327,37 @@ def train_phases(fa, build_model, cfg, device="cuda"):
           f"{grad_rel:.3g} (limit {GRAD_RTOL}); losses {first_losses}", flush=True)
     check(grad_rel <= GRAD_RTOL, f"first-step gradients differ by {grad_rel}")
 
-    runs = {}
-    for impl in ("pallas", "naive"):
+    # pallas eager, then captured (a step's time spreads by well under 1%
+    # between runs), then the plain path, captured
+    runs, order = {}, [("pallas", False), ("pallas", True), ("naive", True)]
+    for impl, jit in order:
+        key = impl if jit else f"{impl}_eager"
         rung = Rung(name="static", attn_impl=impl)
         fa.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         res, wall_t = run_session(TrainSession, [rung], cfg, batch_fn, steps,
-                                  optimizer=adam(), adaptive=False, device=device)
+                                  optimizer=adam(), adaptive=False, device=device,
+                                  jit=jit)
         counts = fa.all_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         ms = step_ms(res)
-        med = statistics.median(ms[1:])
-        runs[impl] = dict(losses=res.losses, step_ms=ms, median_step_ms=med,
-                          tokens_per_s=B * S / (med / 1e3), wall_s=wall_t,
-                          peak_memory_gb=peak_gb, launches=counts)
-        print(f"[train] {impl}: losses {[round(x, 5) for x in res.losses]}; step ms "
-              f"{[round(x, 1) for x in ms]}; median (steps 2-{steps}) {med:.1f} ms = "
-              f"{B * S / (med / 1e3):.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
-              f"launches {counts}", flush=True)
+        med = statistics.median(ms[2:] if jit else ms[1:])
+        step_fn = rung.jitted_step(cfg, adam(), lr=TRAIN["lr"], device=device, jit=jit)
+        run = dict(losses=res.losses, step_ms=ms, median_step_ms=med,
+                   tokens_per_s=B * S / (med / 1e3), wall_s=wall_t,
+                   peak_memory_gb=peak_gb, launches=counts)
+        if jit:
+            run.update(capture_ms=1e3 * step_fn.capture_s, captures=step_fn.captures,
+                       replays=step_fn.replays)
+            check(step_fn.captures == 1 and step_fn.replays == steps - 1,
+                  f"{impl}: {step_fn.captures} captures and {step_fn.replays} "
+                  f"replays in {steps} steps")
+        print(f"[train] {impl} {'captured' if jit else 'eager'}: losses "
+              f"{[round(x, 5) for x in res.losses]}; step ms "
+              f"{[round(x, 1) for x in ms]}; median (steps {3 if jit else 2}-{steps}) "
+              f"{med:.1f} ms = {B * S / (med / 1e3):.0f} tokens/s; peak memory "
+              f"{peak_gb:.2f} GB{' with the graph alive' if jit else ''}; capture "
+              f"{run.get('capture_ms', 0):.1f} ms; launches {counts}", flush=True)
         check(all(map(lambda x: x == x and abs(x) < 1e9, res.losses)),
               f"{impl} losses not finite: {res.losses}")
         if impl == "pallas":
@@ -1193,26 +1365,45 @@ def train_phases(fa, build_model, cfg, device="cuda"):
                 check(counts[kname] == cfg.n_layers * steps,
                       f"{kname} launched {counts[kname]} times in the train run, "
                       f"not {cfg.n_layers} x {steps}")
+        runs[key] = run
+        if key == "pallas":
             train_launches = counts
-            host_ms, dev_ms, top = profile_train_step(
-                rung.cached_step(cfg, adam(), lr=TRAIN["lr"], device=device),
-                res.state, batch_fn(steps))
-            attn_ms = sum(t for t, _, k in top if "flash_" in k)
-            print(f"[profile] train step (pallas): host {host_ms:.1f} ms, device busy "
-                  f"{dev_ms:.1f} ms ({100 * dev_ms / host_ms:.1f}% of the step); the "
-                  f"three attention kernels {attn_ms:.2f} ms", flush=True)
-            for t, n, k in top[:12]:
-                print(f"[profile]   {t:8.3f} ms {n:5d} calls  {k[:90]}")
-            runs[impl]["profile"] = {"host_ms": host_ms, "device_ms": dev_ms,
-                                     "attention_kernels_ms": attn_ms,
-                                     "top": [[t, n, k[:120]] for t, n, k in top[:12]]}
-        del res
+            prof = {}
+            for mode, fn in (("captured", step_fn),
+                             ("eager", rung.train_step_fn(rung.build_model(cfg, device),
+                                                          adam(), lr=TRAIN["lr"]))):
+                host_ms, dev_ms, top = profile_train_step(fn, res.state, batch_fn(steps))
+                attn_ms = sum(t for t, _, k in top if "flash_" in k)
+                print(f"[profile] train step (pallas, {mode}): host {host_ms:.1f} ms, "
+                      f"device busy {dev_ms:.1f} ms ({100 * dev_ms / host_ms:.1f}% of "
+                      f"the step); the three attention kernels {attn_ms:.2f} ms",
+                      flush=True)
+                for t, n, k in top[:12 if mode == "captured" else 4]:
+                    print(f"[profile]   {t:8.3f} ms {n:5d} calls  {k[:90]}")
+                prof[mode] = {"host_ms": host_ms, "device_ms": dev_ms,
+                              "attention_kernels_ms": attn_ms,
+                              "top": [[t, n, k[:120]] for t, n, k in top[:12]]}
+            check(step_fn.last_call == "replay", "the profiled train step did not replay")
+            run["profile"] = prof["captured"]
+            run["profile_eager"] = prof["eager"]
+        del res, rung, step_fn
         free_cuda()
     rel = [abs(a - b) / abs(b) for a, b in zip(runs["pallas"]["losses"],
                                                runs["naive"]["losses"])]
     print(f"[train] pallas vs naive per-step loss relative difference: max "
           f"{max(rel):.3g} (limit {LOSS_RTOL})", flush=True)
     check(max(rel) <= LOSS_RTOL, f"pallas and naive losses differ: {rel}")
+    rel_c = [abs(a - b) / abs(b) for a, b in zip(runs["pallas"]["losses"],
+                                                 runs["pallas_eager"]["losses"])]
+    grad_rel_c = captured_grad_agreement(
+        build_model, cfg, {k: v[:1] for k, v in batch_fn(0).items()}, tree_leaves,
+        device)
+    print(f"[train] captured vs eager: per-step loss relative difference max "
+          f"{max(rel_c):.3g} (limit {LOSS_RTOL}); a replayed step's gradients "
+          f"against the eager step's: norm-wise {grad_rel_c:.3g} (limit {GRAD_RTOL})",
+          flush=True)
+    check(max(rel_c) <= LOSS_RTOL, f"captured and eager losses differ: {rel_c}")
+    check(grad_rel_c <= GRAD_RTOL, f"captured gradients differ by {grad_rel_c}")
 
     # -- phase 7: checkpoint and resume -----------------------------------------
     cut = dataclasses.replace(cfg, n_layers=2)
@@ -1255,6 +1446,9 @@ def train_phases(fa, build_model, cfg, device="cuda"):
         "config": {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                    "params": cfg.param_count(), "dtype": "float32", **TRAIN},
         "pallas": runs["pallas"], "naive": runs["naive"],
+        "pallas_eager": runs["pallas_eager"],
+        "captured_vs_eager": {"loss_rel_diff_max": max(rel_c),
+                              "replayed_grad_rel_err": grad_rel_c},
         "first_step_grad_rel_err": grad_rel, "loss_rel_diff_max": max(rel),
         "resume": {"n_layers": cut.n_layers, "start": start, "losses": resumed,
                    "uninterrupted": ref_tail, "rel_diff_max": rel_resume,
@@ -1280,11 +1474,13 @@ def adaptive_phase(fa, cfg, batch_fn, device="cuda"):
         return batch_fn(step)
 
     fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     adaptive_steps = 10
     res, _ = run_session(TrainSession, ladder, cfg, counted_batches, adaptive_steps,
                          optimizer=adam(), adaptive=True, device=device,
                          trace=InterferenceTrace.parse("2:6:3.0"))
     snaps.append(fa.all_launches())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: snaps[-1][k] - snaps[0][k] for k in snaps[-1]}
     migrations = [(m.step, m.from_rung, m.to_rung, m.reason, m.kind)
                   for m in res.timeline.migrations]
@@ -1302,32 +1498,48 @@ def adaptive_phase(fa, cfg, batch_fn, device="cuda"):
             check(n == cfg.n_layers * micro[rname],
                   f"step {i} on {rname}: {kname} launched {n} times")
     ms = step_ms(res)
-    by_rung = {r.name: statistics.median(t for t, n in zip(ms, rungs_by_step)
-                                         if n == r.name)
-               for r in ladder if r.name in rungs_by_step}
-    print(f"[adaptive] median step ms by rung: "
+    # steady steps only: a rung's first step runs eagerly and its second
+    # captures (both tagged warmup, as the controller skips them)
+    steady = [not s.warmup for s in res.timeline.steps]
+    by_rung = {r.name: statistics.median(
+        [t for t, n, ok in zip(ms, rungs_by_step, steady) if n == r.name and ok]
+        or [t for t, n in zip(ms, rungs_by_step) if n == r.name])
+        for r in ladder if r.name in rungs_by_step}
+    steps_fn = {r.name: r.jitted_step(cfg, adam(), lr=TRAIN["lr"], device=device)
+                for r in ladder if r.name in rungs_by_step}
+    capture_ms = {k: 1e3 * f.capture_s for k, f in steps_fn.items()}
+    print(f"[adaptive] median steady step ms by rung: "
           f"{ {k: round(v, 2) for k, v in by_rung.items()} }; step ms "
-          f"{[round(x, 1) for x in ms]}", flush=True)
+          f"{[round(x, 1) for x in ms]} (warmup {[not x for x in steady]}); capture ms "
+          f"{ {k: round(v, 1) for k, v in capture_ms.items()} }; captures "
+          f"{ {k: f.captures for k, f in steps_fn.items()} }; peak memory "
+          f"{peak_gb:.2f} GB with the graphs alive", flush=True)
     adaptive_out = {"migrations": migrations, "rungs": rungs_by_step,
-                    "losses": res.losses, "step_ms": ms,
-                    "median_step_ms_by_rung": by_rung,
+                    "losses": res.losses, "step_ms": ms, "steady": steady,
+                    "median_step_ms_by_rung": by_rung, "capture_ms": capture_ms,
+                    "captures": {k: f.captures for k, f in steps_fn.items()},
+                    "peak_memory_gb": peak_gb,
                     "reached_bf16": "lean" in rungs_by_step, "launches": launches}
     last = next(r for r in ladder if r.name == rungs_by_step[-1])
-    host_ms, dev_ms, top = profile_train_step(
-        last.cached_step(cfg, adam(), lr=TRAIN["lr"], device=device), res.state,
-        batch_fn(adaptive_steps))
-    bwd_ms = sum(t for t, _, k in top if "flash_bwd" in k)
-    fwd_ms = sum(t for t, _, k in top if "flash_fwd" in k)
-    print(f"[profile] one step on {last.name}: host {host_ms:.1f} ms, device busy "
-          f"{dev_ms:.1f} ms; the forward kernel {fwd_ms:.2f} ms in "
-          f"{sum(n for _, n, k in top if 'flash_fwd' in k)} launches; the backward "
-          f"kernels {bwd_ms:.2f} ms in "
-          f"{sum(n for _, n, k in top if 'flash_bwd' in k)} launches", flush=True)
-    for t, n, k in top[:8]:
-        print(f"[profile]   {t:8.3f} ms {n:5d} calls  {k[:90]}")
-    adaptive_out["profile"] = {"rung": last.name, "host_ms": host_ms, "device_ms": dev_ms,
-                               "forward_kernel_ms": fwd_ms, "backward_kernels_ms": bwd_ms,
-                               "top": [[t, n, k[:120]] for t, n, k in top[:8]]}
+    adaptive_out["profile"] = {"rung": last.name}
+    for mode, fn in (("captured", steps_fn[last.name]),
+                     ("eager", last.train_step_fn(last.build_model(cfg, device), adam(),
+                                                  lr=TRAIN["lr"]))):
+        host_ms, dev_ms, top = profile_train_step(fn, res.state, batch_fn(adaptive_steps))
+        bwd_ms = sum(t for t, _, k in top if "flash_bwd" in k)
+        fwd_ms = sum(t for t, _, k in top if "flash_fwd" in k)
+        print(f"[profile] one step on {last.name} ({mode}): host {host_ms:.1f} ms, "
+              f"device busy {dev_ms:.1f} ms; the forward kernel {fwd_ms:.2f} ms in "
+              f"{sum(n for _, n, k in top if 'flash_fwd' in k)} launches; the backward "
+              f"kernels {bwd_ms:.2f} ms in "
+              f"{sum(n for _, n, k in top if 'flash_bwd' in k)} launches", flush=True)
+        for t, n, k in top[:8 if mode == "captured" else 4]:
+            print(f"[profile]   {t:8.3f} ms {n:5d} calls  {k[:90]}")
+        adaptive_out["profile"][mode] = {
+            "host_ms": host_ms, "device_ms": dev_ms, "forward_kernel_ms": fwd_ms,
+            "backward_kernels_ms": bwd_ms, "top": [[t, n, k[:120]] for t, n, k in top[:8]]}
+    check(steps_fn[last.name].last_call == "replay",
+          f"the profiled step on {last.name} did not replay")
     del res
     free_cuda()
     return adaptive_out
@@ -1506,34 +1718,46 @@ def cnn_phases(dw, build_model, get_config, device="cuda"):
         cfg = get_config(arch)
         first = make_batch_fn(cfg, B, 0, seed=CNN["seed"])(0)
         batch_fn = lambda step, first=first: first  # noqa: E731
-        rung = Rung(name="static", attn_impl="naive")
-        torch.cuda.reset_peak_memory_stats()
-        res, wall = run_session(TrainSession, [rung], cfg, batch_fn, CNN["steps"],
-                                optimizer=adam(), adaptive=False, lr=CNN["lr"],
-                                device=device)
-        ms = step_ms(res)
-        med = statistics.median(ms[1:])
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        check(all(x == x and abs(x) < 1e9 for x in res.losses),
-              f"{arch}: losses not finite: {res.losses}")
-        check(res.losses[-1] < res.losses[0],
-              f"{arch}: the last loss is not below the first: {res.losses}")
-        host_ms, dev_ms, top = profile_train_step(
-            rung.cached_step(cfg, adam(), lr=CNN["lr"], device=device), res.state, first)
-        top = top[:8]
-        print(f"[cnn-train] {arch}: losses {[round(x, 4) for x in res.losses]}; step ms "
-              f"{[round(x, 1) for x in ms]}; median (steps 2-{CNN['steps']}) {med:.1f} "
-              f"ms = {B / (med / 1e3):.0f} images/s; peak memory {peak_gb:.2f} GB; "
-              f"profiled step: host {host_ms:.1f} ms, device busy {dev_ms:.1f} ms "
-              f"({100 * (1 - dev_ms / host_ms):.1f}% idle)", flush=True)
-        for t, k, name in top[:6]:
-            print(f"[profile]   {t:8.3f} ms {k:5d} calls  {name[:90]}")
-        out[arch]["train"] = {"losses": res.losses, "step_ms": ms, "median_step_ms": med,
-                              "images_per_s": B / (med / 1e3), "peak_memory_gb": peak_gb,
-                              "profile": {"host_ms": host_ms, "device_ms": dev_ms,
-                                          "top": [[t, k, n[:120]] for t, k, n in top]}}
-        del res
-        free_cuda()
+        train = {}
+        for jit in (True, False):  # captured, then eager
+            rung = Rung(name="static", attn_impl="naive")
+            torch.cuda.reset_peak_memory_stats()
+            res, wall = run_session(TrainSession, [rung], cfg, batch_fn, CNN["steps"],
+                                    optimizer=adam(), adaptive=False, lr=CNN["lr"],
+                                    device=device, jit=jit)
+            ms = step_ms(res)
+            med = statistics.median(ms[2:] if jit else ms[1:])
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            check(all(x == x and abs(x) < 1e9 for x in res.losses),
+                  f"{arch}: losses not finite: {res.losses}")
+            check(res.losses[-1] < res.losses[0],
+                  f"{arch}: the last loss is not below the first: {res.losses}")
+            step_fn = rung.jitted_step(cfg, adam(), lr=CNN["lr"], device=device, jit=jit)
+            host_ms, dev_ms, top = profile_train_step(step_fn, res.state, first)
+            top = top[:8]
+            mode = "captured" if jit else "eager"
+            print(f"[cnn-train] {arch} {mode}: losses {[round(x, 4) for x in res.losses]}; "
+                  f"step ms {[round(x, 1) for x in ms]}; median (steps "
+                  f"{3 if jit else 2}-{CNN['steps']}) {med:.1f} ms = "
+                  f"{B / (med / 1e3):.0f} images/s; peak memory {peak_gb:.2f} GB; "
+                  f"capture {1e3 * getattr(step_fn, 'capture_s', 0):.1f} ms; profiled "
+                  f"step: host {host_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+                  f"({100 * (1 - dev_ms / host_ms):.1f}% idle)", flush=True)
+            for t, k, name in top[:6 if jit else 3]:
+                print(f"[profile]   {t:8.3f} ms {k:5d} calls  {name[:90]}")
+            train[mode] = {"losses": res.losses, "step_ms": ms, "median_step_ms": med,
+                           "images_per_s": B / (med / 1e3), "peak_memory_gb": peak_gb,
+                           "capture_ms": 1e3 * getattr(step_fn, "capture_s", 0.0),
+                           "profile": {"host_ms": host_ms, "device_ms": dev_ms,
+                                       "top": [[t, k, n[:120]] for t, k, n in top]}}
+            del res, rung, step_fn
+            free_cuda()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(train["captured"]["losses"],
+                                                      train["eager"]["losses"]))
+        print(f"[cnn-train] {arch}: captured vs eager losses, max relative "
+              f"difference {rel:.3g}", flush=True)
+        out[arch]["train"] = dict(train["captured"], eager=train["eager"],
+                                  captured_vs_eager_loss_rel_diff=rel)
     for arch in ("mobilenet-v2", "shufflenet-v2"):  # the kernel has no gradient
         cfg = get_config(arch)
         try:
@@ -1552,23 +1776,33 @@ def cnn_phases(dw, build_model, get_config, device="cuda"):
     # -- phase 14: the adaptive ladder (no bf16 rung) on mobilenet-v2 ---------
     cfg = get_config("mobilenet-v2")
     ladder = default_rung_ladder(batch=B, attn_impl="naive", include_bf16=False)
+    torch.cuda.reset_peak_memory_stats()
     res, _ = run_session(TrainSession, ladder, cfg, make_batch_fn(cfg, B, 0, seed=CNN["seed"]),
                          CNN["adaptive_steps"], optimizer=adam(), adaptive=True,
                          lr=CNN["lr"], trace=InterferenceTrace.parse(CNN["trace"]),
                          device=device)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     migrations = [(m.step, m.from_rung, m.to_rung, m.reason, m.kind)
                   for m in res.timeline.migrations]
     rungs_by_step = [s.rung for s in res.timeline.steps]
+    capture_ms = {r.name: 1e3 * r.jitted_step(cfg, adam(), lr=CNN["lr"],
+                                              device=device).capture_s
+                  for r in ladder if r.name in rungs_by_step}
     print(f"[cnn-adaptive] mobilenet-v2 under {CNN['trace']}: migrations {migrations}; "
           f"rung per step {rungs_by_step}; step ms "
-          f"{[round(x, 1) for x in step_ms(res)]}; losses "
-          f"{[round(x, 4) for x in res.losses]}", flush=True)
+          f"{[round(x, 1) for x in step_ms(res)]} (warmup "
+          f"{[s.warmup for s in res.timeline.steps]}); losses "
+          f"{[round(x, 4) for x in res.losses]}; capture ms "
+          f"{ {k: round(v, 1) for k, v in capture_ms.items()} }; peak memory "
+          f"{peak_gb:.2f} GB with the graphs alive", flush=True)
     check(migrations and all(m[4] == "in-place" for m in migrations),
           f"no in-place migration: {migrations}")
     check(all(x == x and abs(x) < 1e9 for x in res.losses), f"{res.losses}")
     out["adaptive"] = {"arch": cfg.name, "migrations": migrations,
                        "rungs": rungs_by_step, "losses": res.losses,
-                       "step_ms": step_ms(res)}
+                       "step_ms": step_ms(res),
+                       "warmup": [s.warmup for s in res.timeline.steps],
+                       "capture_ms": capture_ms, "peak_memory_gb": peak_gb}
     del res
     free_cuda()
     out["config"] = dict(CNN)
@@ -1646,6 +1880,16 @@ def main() -> int:
               f"{min(regs)}-{max(regs)}, spill stores up to {max(spills)} bytes "
               f"({sum(1 for x in spills if x)} kernels spill)")
 
+    seconds = {"build": build_s}
+    t0 = time.perf_counter()
+
+    def lap(name):  # host seconds of each group of phases
+        nonlocal t0
+        t1 = time.perf_counter()
+        seconds[name] = t1 - t0
+        t0 = t1
+        print(f"[time] {name}: {seconds[name]:.1f} s", flush=True)
+
     # -- phase 3: kernels against their plain versions -------------------------
     fwd = check_flash_fwd(fa, ref)
     dec = check_flash_decode(fa, ref)
@@ -1658,18 +1902,24 @@ def main() -> int:
     for c in (fwd + dec + bwd_dq + bwd_dkv + dec_paged + spec + spec_paged + dwc
               + rms_fwd + rms_bwd):
         check(c["ok"], f"kernel disagrees with its plain version: {c}")
+    lap("phase 3")
 
     # -- phases 4 and 5: serve with the kernels, then the plain path -----------
     cfg = get_config("llama3.2-1b")
     reqs = make_requests(serve, cfg.vocab_size)
     serve_out, serve_launches, contig_streams = serve_phases(fa, serve, build_model,
                                                              cfg, reqs)
-
+    lap("phases 4-5")
     train_out, train_launches = train_phases(fa, build_model, cfg)
+    lap("phases 6-8")
     paged_out, spec_out, path_launches = paged_and_spec_phases(
-        fa, serve, build_model, cfg, reqs, contig_streams)
+        fa, serve, build_model, dataclasses.replace(cfg, n_layers=PAGED["layers"]),
+        reqs, None)
+    lap("phases 9-11")
     cnn_out, cnn_launches = cnn_phases(dw, build_model, get_config)
+    lap("phases 12-14")
     rms_out, rms_launches = rmsnorm_path(ops, rn)
+    lap("phase 15")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -1751,7 +2001,7 @@ def main() -> int:
                 e["launches_by_path"][p] = n
         e["launches"] = sum(e["launches_by_path"].values())
     print(json.dumps({"serve": serve_out}))
-    print(json.dumps({"train": dict(train_out, build_s=build_s,
+    print(json.dumps({"train": dict(train_out, build_s=build_s, seconds=seconds,
                                     seconds_total=time.perf_counter() - t_start)}))
     print(json.dumps({"serve_paged": paged_out}))
     print(json.dumps({"serve_spec": spec_out}))

@@ -4,10 +4,10 @@
 The Swan planner's pruned ladder (core/cost.py) is a list of ChoiceProfiles —
 passive cost-model objects. A Rung is the runnable counterpart: the knobs a
 live session can actually switch mid-training (microbatch, attention kernel,
-parameter dtype) plus a lazily built and cached train step from
-launch/steps.py (``cached_step``, the counterpart of the reference's
-``jitted_step``). ``default_rung_ladder`` builds the downgrade ladder the
-CLI runs. The reference's ``Rung.from_mesh_choice`` and
+parameter dtype) plus a lazily built and cached compiled train step from
+launch/steps.py (``jitted_step``, as in the reference: a ``CompiledStep``,
+captured as a CUDA graph on the card). ``default_rung_ladder`` builds the
+downgrade ladder the CLI runs. The reference's ``Rung.from_mesh_choice`` and
 ``rungs_from_ladder`` (planner ladders onto rungs) wait for the planner.
 
 Migration compatibility: every Rung here runs on the one card
@@ -81,29 +81,43 @@ class Rung:
 
     def train_step_fn(self, model, optimizer, *, lr: float = 0.05,
                       compressor=None):
-        """The step ``cached_step`` caches."""
+        """The raw (uncompiled) step ``jitted_step`` wraps."""
         from repro_torch.launch.steps import build_train_step
         from repro_torch.optim.compression import Compressor
         comp = compressor or Compressor(self.compression)
         return build_train_step(model, optimizer, microbatch=self.microbatch,
                                 lr=lr, compressor=comp)
 
-    def cached_step(self, cfg, optimizer, *, lr: float = 0.05,
-                    compressor=None, device="cuda"):
-        """The counterpart of the reference's ``jitted_step``: a train step
-        built on first use and cached, so migrating away and back reuses it.
-        PyTorch runs it eagerly; nothing is compiled."""
+    def jitted_step(self, cfg, optimizer, *, lr: float = 0.05,
+                    compressor=None, device="cuda", jit: bool = True,
+                    pool=None):
+        """Lazily built cached compiled step: the first call on a rung runs
+        the step eagerly on its capture stream, the second captures it as a
+        CUDA graph, later calls (including after migrating away and back)
+        replay it, and a call whose state lies at new addresses (a dtype
+        migration casts the parameters) captures again
+        (``launch/steps.CompiledStep``). Eager on the CPU and with
+        ``jit=False``. ``pool``: a ``launch.steps.GraphPool`` shared with
+        the other rungs of one session (they never run at once), read when
+        the step is built."""
+        from repro_torch.launch.steps import CompiledStep
         key = (cfg.name, self.signature(), optimizer.name, float(lr),
-               getattr(compressor, "scheme", self.compression), str(device))
+               getattr(compressor, "scheme", self.compression), str(device),
+               bool(jit))
         if self._step is None or self._step_key != key:
+            self._step = None  # drop the old graphs before building anew
             model = self.build_model(cfg, device)
-            self._step = self.train_step_fn(model, optimizer, lr=lr,
-                                            compressor=compressor)
+            step = self.train_step_fn(model, optimizer, lr=lr,
+                                      compressor=compressor)
+            self._step = CompiledStep(step, f"train_step[{self.name}]",
+                                      state_argnums=(0,), pool=pool) \
+                if jit else step
             self._step_key = key
         return self._step
 
     def invalidate(self):
-        """Drop the cached step (and with it the model it closes over)."""
+        """Drop the compiled step, its graphs (and with them their memory)
+        and the model it closes over."""
         self._step = None
         self._step_key = None
 

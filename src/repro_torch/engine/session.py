@@ -6,7 +6,9 @@ owns the training state and implements the :class:`SocJob` protocol
 (engine/jobs.py); ``run()`` is a one-job :class:`SwanRuntime`. Per quantum
 the job:
 
-1. executes the active Rung's cached train step (``step``),
+1. executes the active Rung's compiled train step (``step``;
+   ``Rung.jitted_step``, a CUDA graph on the card, eager with
+   ``jit=False`` and on the CPU),
 2. digests the observed latency and lets its SwanController *propose* a
    migration (``observe``) — the runtime arbitrates across co-tenant jobs,
 3. applies a committed migration *without restarting* (``migrate``):
@@ -46,7 +48,7 @@ from repro_torch.engine.jobs import SocJob, StepReport
 from repro_torch.engine.rungs import Rung
 from repro_torch.engine.timeline import MigrationRecord, Timeline
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.launch.steps import cast_params, init_train_state
+from repro_torch.launch.steps import GraphPool, cast_params, init_train_state
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -72,7 +74,7 @@ class TrainSession(SocJob):
                  latency_fn: Optional[Callable] = None,
                  log_every: int = 0, verbose: bool = True,
                  name: str = "train", priority: float = 1.0,
-                 device="cuda"):
+                 device="cuda", jit: bool = True):
         if not rungs:
             raise ValueError("need at least one rung")
         if elastic is not None or fault_events is not None:
@@ -99,6 +101,10 @@ class TrainSession(SocJob):
         self.name = name
         self.priority = float(priority)
         self.device = resolve_device(device)
+        # steps are captured as CUDA graphs on the card (Rung.jitted_step);
+        # jit=False runs them eagerly
+        self.jit = bool(jit)
+        self._graph_pool = None
 
         n = len(self._rungs)
         profiles = [r.profile(position=i, n=n)
@@ -133,11 +139,17 @@ class TrainSession(SocJob):
     def rung(self) -> Rung:
         return self._rungs[self.ctl.idx]
 
-    def _run_step(self, state, batch):
-        fn = self.rung.cached_step(self.cfg, self.optimizer, lr=self.lr,
-                                   compressor=self.compressor,
-                                   device=self.device)
-        return fn(state, batch)
+    def step_fn(self):
+        """The active rung's compiled train step. Every rung of the session
+        captures into one CUDA graph memory pool, on one stream: one rung
+        runs at a time, so their graphs' activations and gradients can share
+        the memory."""
+        if self._graph_pool is None:
+            self._graph_pool = GraphPool()
+        return self.rung.jitted_step(self.cfg, self.optimizer, lr=self.lr,
+                                     compressor=self.compressor,
+                                     device=self.device, jit=self.jit,
+                                     pool=self._graph_pool)
 
     # -- migrations --------------------------------------------------------
     def _ckpt(self) -> CheckpointManager:
@@ -227,12 +239,17 @@ class TrainSession(SocJob):
         """Checkpoint and *release* the training state — the foreground app
         that preempted us wants the memory. The checkpoint is labeled with
         the completed-step count, so resume (or a crash during the pause)
-        restarts exactly at the pre-pause step."""
+        restarts exactly at the pre-pause step. The rungs' CUDA graphs go
+        too (their pool holds a step's activations and gradients); resume
+        runs the first step eagerly and captures again."""
         if not self._prepared or self._state is None:
             return
         t0 = time.perf_counter()
         self._ckpt().save(self._step_idx, self._state)
         self._state = None
+        for r in self._rungs:
+            r.invalidate()
+        self._graph_pool = None
         self.timeline.record_migration(
             step=self._step_idx, from_rung=self.rung.name,
             to_rung=self.rung.name, reason="pause", kind="pause",
@@ -269,14 +286,20 @@ class TrainSession(SocJob):
         rung = self.rung
         self._ran_tick = tick
         batch = self.batch_fn(step)
-        warmup = self._steps_on_rung == 0
+        fn = self.step_fn()
         # compile=True marks the first quantum on a rung (it pays the
         # first-use costs: kernel loads, allocator growth), as the
-        # reference tags its compile spans
+        # reference tags its compile spans, and every quantum whose compiled
+        # step does not replay: the first call of a shape runs eagerly and
+        # the second captures the graph (again after a migration moved the
+        # state), so neither calibrates the controller
+        compiles = getattr(fn, "compiles", None)
+        warmup = self._steps_on_rung == 0 or bool(
+            compiles and compiles(self._state, batch))
         with obs.get_telemetry().span("train.step", job=self.name, step=step,
                                       rung=rung.name, compile=warmup):
             t0 = time.perf_counter()
-            self._state, metrics = self._run_step(self._state, batch)
+            self._state, metrics = fn(self._state, batch)
             loss = float(metrics["loss"])  # blocks until the step is done
             dt = time.perf_counter() - t0
         self._steps_on_rung += 1

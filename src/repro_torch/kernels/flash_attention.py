@@ -178,18 +178,35 @@ def spec_plan(B: int, K: int, R: int, T: int, bs: int, sms: int) -> tuple:
 
 
 # per (device, stream): the split decode kernels' arrival counts, zero
-# between calls
+# between calls; and every buffer a larger one replaced, which a captured
+# CUDA graph may still address
 _ARRIVALS: dict = {}
+_RETIRED: list = []
 
 
 def _arrivals(device: int, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 arrival counts for the split blocks of both
     decode kernels and the speculative verify: zero when made, and each
     call's last block of a row resets its own, so calls of all of them on
-    one stream share the buffer in turn. Kept per stream, so that calls on
-    two streams never share one."""
+    one stream share the buffer in turn, and a CUDA graph that captured
+    calls finds it zero at every replay. Kept per stream, so that calls on
+    two streams never share one.
+
+    A buffer grows by a new allocation, never during a capture (it would
+    land in the graph's memory and be zeroed only there): a compiled step
+    (``launch/steps.CompiledStep``) runs each shape signature eagerly on its
+    capture stream first, which sizes the buffer for it. The buffer it
+    replaces stays allocated, since a graph captured before may address it.
+    """
     buf = _ARRIVALS.get((device, stream))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the split kernels' arrival counts on stream {stream:#x} "
+                f"would grow to {n} during a CUDA graph capture: run the "
+                f"step once on the capture stream first")
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(n, dtype=torch.int32, device=torch.device("cuda", device))
         _ARRIVALS[(device, stream)] = buf
     return buf

@@ -150,7 +150,7 @@ class ContinuousBatchingEngine:
                  admission_policy: str = "serialize",
                  max_queue: Optional[int] = None, prefix_cache: bool = True,
                  swap_grace: int = 2, draft_depth: int = 0,
-                 draft_source=None):
+                 draft_source=None, jit: bool = True):
         if model.cfg.family != "dense":
             raise ValueError(f"continuous batching is ported for the dense "
                              f"family, got {model.cfg.family!r}")
@@ -222,6 +222,11 @@ class ContinuousBatchingEngine:
         self.spec_drafted = 0
         self.spec_accepted = 0
 
+        # device buffers of the steps' per-step inputs, by name and shape
+        # (_dev): fixed addresses, filled by copy_ through pinned staging
+        self._bufs: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # the decode and verify steps are compiled (CUDA graphs on the card,
+        # launch/steps.CompiledStep); prefill and prefill chunks stay eager
         self._prefill = build_prefill_step(model)
         if kv_layout == "paged":
             # virtual capacity per sequence: T blocks; the default provisions
@@ -236,21 +241,22 @@ class ContinuousBatchingEngine:
             self._reserved: Dict[int, int] = {}
             self.cache = model.init_paged_cache(num_blocks, block_size,
                                                 cache_dtype)
-            self._decode = build_paged_decode_step(model)
+            self._decode = build_paged_decode_step(model, jit=jit)
             self._prefill_chunk = build_paged_prefill_step(model)
             self._prefill_chunk_ro = build_paged_prefill_step(model,
                                                               write=False)
-            self._spec_decode = build_paged_spec_decode_step(model)
+            self._spec_decode = build_paged_spec_decode_step(model, jit=jit)
             # device-resident dense block table, updated row-wise from the
             # host table's dirty set instead of re-uploaded every step (a
-            # copy: the host table keeps changing under it)
+            # copy: the host table keeps changing under it); always written
+            # in place, never replaced
             self._dev_tables = torch.tensor(self.kv.tables, device=self.device)
             self.kv.take_dirty()  # the upload above covered the initial rows
         else:
             self.kv = None
             self.cache = model.init_cache(max_batch, max_seq, cache_dtype)
-            self._decode = build_decode_step(model)
-            self._spec_decode = build_spec_decode_step(model)
+            self._decode = build_decode_step(model, jit=jit)
+            self._spec_decode = build_spec_decode_step(model, jit=jit)
 
     # -- request lifecycle -------------------------------------------------
 
@@ -585,7 +591,7 @@ class ContinuousBatchingEngine:
         # ship only the rows that changed since last step; bulk dirt (e.g.
         # after a swap storm) falls back to one full upload
         if len(rows) > max(1, self.max_batch // 2):
-            self._dev_tables = torch.tensor(self.kv.tables, device=self.device)
+            self._dev_tables.copy_(torch.as_tensor(self.kv.tables))
             self.table_uploads += 1
         else:
             for r in rows:
@@ -605,8 +611,24 @@ class ContinuousBatchingEngine:
                     for s in active))
         return max(k, 0)
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+    def _dev(self, name: str, a: np.ndarray) -> torch.Tensor:
+        """``a`` copied into the engine's device buffer ``name`` (one per
+        name and shape, made on first use) through a pinned host buffer, and
+        that device buffer returned: a step's inputs keep their addresses
+        and no tensor is made per step. The copy is asynchronous; the step's
+        own read-back (``.cpu()``) completes it before the next step writes
+        the host buffer again."""
+        key = (name, a.shape)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            host = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
+                               pin_memory=self.device.type == "cuda")
+            bufs = self._bufs[key] = (host, torch.empty_like(
+                host, device=self.device))
+        host, dev = bufs
+        host.numpy()[...] = a
+        dev.copy_(host, non_blocking=True)
+        return dev
 
     def step(self) -> List[Tuple[int, int]]:
         """Admit waiting requests, run one batched decode, retire finishers.
@@ -636,12 +658,12 @@ class ContinuousBatchingEngine:
             self._append_positions(active, 1)
             self._ship_dirty_tables()
             next_tok, _, self.cache = self._decode(
-                self.params, self.cache, self._dev(self.tokens),
-                self._dev(self.cache_len), self._dev_tables)
+                self.params, self.cache, self._dev("tokens", self.tokens),
+                self._dev("cache_len", self.cache_len), self._dev_tables)
         else:
             next_tok, _, self.cache = self._decode(
-                self.params, self.cache, self._dev(self.tokens),
-                self._dev(self.cache_len))
+                self.params, self.cache, self._dev("tokens", self.tokens),
+                self._dev("cache_len", self.cache_len))
         next_np = next_tok.cpu().numpy()
         self.decode_steps += 1
         self._active_slot_steps += len(active)
@@ -681,13 +703,15 @@ class ContinuousBatchingEngine:
             self._append_positions(active, S)
             self._ship_dirty_tables()
             logits, self.cache = self._spec_decode(
-                self.params, self.cache, self._dev(win),
-                self._dev(self.cache_len), self._dev_tables)
+                self.params, self.cache, self._dev("window", win),
+                self._dev("cache_len", self.cache_len), self._dev_tables)
         else:
             logits, self.cache = self._spec_decode(
-                self.params, self.cache, self._dev(win),
-                self._dev(self.cache_len))
-        toks, n_emit = greedy_verify(logits, self._dev(win[:, 1:]))
+                self.params, self.cache, self._dev("window", win),
+                self._dev("cache_len", self.cache_len))
+        # the compiled step's logits are its graph's buffer: verified here,
+        # before the next call overwrites them
+        toks, n_emit = greedy_verify(logits, self._dev("drafts", win[:, 1:]))
         tok_np = toks.cpu().numpy()
         n_np = n_emit.cpu().numpy()
         self.decode_steps += 1

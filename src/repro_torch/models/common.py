@@ -74,8 +74,11 @@ def apply_mlp(p, x, activation: str):
 # --- rotary embeddings ------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device="cpu"):
+    """1 / theta ** (2i / head_dim) in f32. The base is a Python float, so no
+    host tensor is made and copied to the device: a step captured as a CUDA
+    graph may not copy from pageable host memory."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    return 1.0 / torch.pow(float(theta), exps)
 
 
 def apply_rope(x, positions, theta: float):

@@ -5,11 +5,14 @@ Optimizer = (init(params) -> state, update(grads, state, params, lr) ->
 lr=0.05 (§5.1); Adam exists for the beyond-paper experiments and the LM
 examples. Moments stay f32 under bf16 params, as in the reference.
 
-Unlike the reference's pure functions, ``update`` writes the momentum and
-Adam moments in place and returns the same state objects: the train step
-owns its state, and a new copy of the moments would cost 2 x 4 bytes per
-parameter (~10 GB at llama3.2-1b's full width). ``apply_updates`` adds in
-place too. Callers that need the old state keep a copy.
+Unlike the reference's pure functions, ``update`` writes the momentum,
+Adam moments and Adam's step count ``t`` in place and returns the same
+state objects: the train step owns its state, a new copy of the moments
+would cost 2 x 4 bytes per parameter (~10 GB at llama3.2-1b's full width),
+and a compiled step (``launch/steps.CompiledStep``) replays what it
+captured, so a new ``t`` would freeze the bias correction at its captured
+step. ``apply_updates`` adds in place too. Callers that need the old state
+keep a copy.
 """
 from __future__ import annotations
 
@@ -65,10 +68,10 @@ def adam(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, state, params, lr):
-        t = state["t"] + 1
+        t = state["t"].add_(1)
         tf = t.float()
-        bc1 = 1 - torch.pow(torch.tensor(b1, device=tf.device), tf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, device=tf.device), tf)
+        bc1 = 1 - torch.pow(b1, tf)  # a scalar base: no host tensor
+        bc2 = 1 - torch.pow(b2, tf)
 
         def upd(m_, v_, g, p):
             g = g.float()

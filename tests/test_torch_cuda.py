@@ -1044,3 +1044,312 @@ def test_cnn_forward_on_the_card_goes_through_the_kernel(arch):
         torch.backends.cudnn.allow_tf32 = prev
     assert n == (13 if arch == "mobilenet-v2" else 3)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# compiled steps: CUDA graphs captured and replayed (launch/steps.CompiledStep)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def freed():
+    """Memory freed before and after a test that holds a full-width state and
+    graphs: a graph's pool keeps what its capture used reserved."""
+    _free()
+    yield
+    _free()
+
+
+def _llama(width):
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b")
+    return cfg.reduced() if width == "reduced" else cfg
+
+
+def _serve_requests(cfg, gen):
+    """10 requests: five share a 12-token prefix, two are identical (a
+    full-prompt hit and a copy-on-write), prompts of 13 to 29 tokens."""
+    import numpy as np
+    from repro_torch.launch import serve
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, 12)
+    prompts = [np.concatenate([prefix if u < 5 else rng.integers(0, cfg.vocab_size, 12),
+                               rng.integers(0, cfg.vocab_size, 1 + 2 * u)])
+               for u in range(10)]
+    prompts[1] = prompts[0]
+    return [serve.Request(uid=u, prompt=p.astype(np.int32), max_new_tokens=gen)
+            for u, p in enumerate(prompts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("layout,policy,depth", [
+    ("contig", "serialize", 0), ("paged", "serialize", 0), ("paged", "swap", 0),
+    ("contig", "serialize", 4), ("paged", "serialize", 4),
+    ("contig", "serialize", 32), ("paged", "serialize", 32)])
+def test_compiled_serve_matches_eager(freed, width, layout, policy, depth):
+    """8 slots served with the steps captured (the default) and eagerly
+    (``jit=False``): token-identical streams, the same launch counts, and
+    each step replayed. Paged runs hold a copy-on-write; the swap policy's
+    pool is cut so that residents go to the host and come back; draft depth
+    4 verifies windows of S = 5 down to 2 (the clamp at the end of each
+    budget), depth 32 windows of S = 33."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    dev = _device()
+    cfg = _llama(width)
+    gen = 40 if depth == 32 else 12
+    max_seq = 96 if depth == 32 else 64
+    model = build_model(cfg, impl="pallas", device=dev)
+    params = model.init(model.generator(0))
+    kw = dict(max_batch=8, max_seq=max_seq, kv_layout=layout, block_size=4,
+              draft_depth=depth, admission_policy=policy)
+    if policy == "swap":
+        kw["num_blocks"] = 40  # 8 residents need up to 8 x 11 blocks
+    runs = {}
+    for jit in (False, True):
+        engine = serve.ContinuousBatchingEngine(model, params, jit=jit, **kw)
+        depths = []
+        spec_k = engine._spec_k
+        engine._spec_k = lambda active: depths.append(spec_k(active)) or depths[-1]
+        fa.reset_launches()
+        done = engine.run(_serve_requests(cfg, gen))
+        del engine._spec_k, spec_k  # no cycle keeps the engine alive
+        step = engine._spec_decode if depth else engine._decode
+        # each graph's signature: the params' and cache's leaves, then the
+        # window of tokens (B, S)
+        n_state = len(tree_leaves_(params)) + len(tree_leaves_(engine.cache))
+        runs[jit] = dict(
+            streams={u: f.tokens for u, f in done.items()},
+            launches=fa.all_launches(), stats=engine.stats(),
+            depths=sorted(set(depths)),
+            step={k: getattr(step, k, None) for k in ("captures", "replays",
+                                                      "last_call")},
+            windows={sig[1][n_state][1][1] for sig in getattr(step, "_graphs", ())})
+        del engine, step
+    e, j = runs[False], runs[True]
+    assert j["streams"] == e["streams"]
+    assert j["launches"] == e["launches"] and sum(j["launches"].values()) > 0
+    assert j["depths"] == e["depths"]
+    if layout == "paged":
+        assert j["stats"]["cow_copies"] >= 1
+    if policy == "swap":
+        assert j["stats"]["swap_outs"] > 0
+        assert j["stats"]["swap_ins"] == j["stats"]["swap_outs"]
+    if depth:
+        want = {4: {1, 2, 3, 4}, 32: {32}}[depth]
+        assert want <= set(j["depths"]), j["depths"]
+        assert {k + 1 for k in want} <= j["windows"], j["windows"]
+    assert j["step"]["captures"] >= 1
+    assert j["step"]["replays"] > j["step"]["captures"]
+    assert j["step"]["last_call"] == "replay"
+
+
+def _recording_optimizer():
+    """An optimizer that copies each step's gradients into its state and
+    updates nothing: a captured train step's gradients, read back."""
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.tree import tree_map
+
+    def init(params):
+        return tree_map(torch.zeros_like, params)
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        tree_map(lambda s, g: s.copy_(g), state, grads)
+        return tree_map(lambda g: g.new_zeros(()), grads), state  # broadcast 0
+
+    return Optimizer("record_grads", init, update, 4)
+
+
+def _train_runs(width, microbatch, jit, steps, migrate=False):
+    """``steps`` adam steps of llama3.2-1b (``width``) at batch 4 x 64 through
+    ``Rung.jitted_step``; with ``migrate``, steps 2-3 on a bf16 rung at
+    microbatch 4 and the rest back on f32 (full -> lean -> full, the
+    parameters cast each way; the old parameters are kept, so the cast
+    ones lie elsewhere). Returns (losses, first-step gradients, the full
+    rung's compiled step's captures, replays and last call, the launches of
+    each step). The gradients are those of the third call of a step that
+    records them: a replay when ``jit``."""
+    import numpy as np
+    from repro_torch.engine.rungs import Rung
+    from repro_torch.launch.steps import cast_params, init_train_state
+    from repro_torch.optim.optimizers import adam
+    dev = _device()
+    cfg = _llama(width)
+    full = Rung(name="full", microbatch=microbatch, attn_impl="pallas")
+    lean = Rung(name="lean", microbatch=4, attn_impl="pallas",
+                param_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)}
+               for _ in range(steps)]
+    model = full.build_model(cfg, dev)
+    record = _recording_optimizer()
+    state = init_train_state(model, record, model.generator(0))
+    for _ in range(3):
+        state, _ = full.jitted_step(cfg, record, device=dev, jit=jit)(
+            state, batches[0])
+    grads = tree_leaves_(state["opt"])
+    del state
+    full.invalidate()
+    state = init_train_state(model, adam(), model.generator(0))
+    losses, counts, kept = [], [], []
+    for i in range(steps):
+        rung = lean if migrate and i in (2, 3) else full
+        if migrate and i in (2, 4):
+            kept.append(state["params"])
+            state = dict(state, params=cast_params(state["params"], rung.dtype))
+        before = fa.all_launches()
+        state, metrics = rung.jitted_step(cfg, adam(), lr=1e-4, device=dev,
+                                          jit=jit)(state, batches[i])
+        losses.append(float(metrics["loss"]))
+        after = fa.all_launches()
+        counts.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+    assert int(state["step"]) == steps and int(state["opt"]["t"]) == steps
+    step = full.jitted_step(cfg, adam(), lr=1e-4, device=dev, jit=jit)
+    calls = tuple(getattr(step, k, None) for k in ("captures", "replays", "last_call"))
+    del state, kept, step
+    full.invalidate()
+    lean.invalidate()
+    _free()
+    return losses, grads, calls, counts
+
+
+def _free():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tree_leaves_(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _rel(a, b):
+    num = sum(float((x.double() - y.double()).square().sum()) for x, y in zip(a, b))
+    den = sum(float(y.double().square().sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("microbatch", [1, 2])
+def test_compiled_train_step_matches_eager(freed, width, microbatch):
+    """4 adam steps captured and eager: losses within 1e-3, first-step
+    gradients within 1e-4 (norm-wise), the same launches every step, and
+    the calls warm-up, capture, replay, replay."""
+    import numpy as np
+    got = _train_runs(width, microbatch, True, 4)
+    want = _train_runs(width, microbatch, False, 4)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-3)
+    assert _rel(got[1], want[1]) <= 1e-4
+    assert got[3] == want[3]
+    assert got[2] == (1, 3, "replay")  # captures, replays, the last call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_compiled_train_migration_recaptures(freed, width):
+    """full -> lean (bf16) -> full: the full rung's graph sees its
+    parameters at new addresses and captures again; losses stay within 1e-3
+    of the eager run's, the launch counts equal its."""
+    import numpy as np
+    got = _train_runs(width, 1, True, 6, migrate=True)
+    want = _train_runs(width, 1, False, 6, migrate=True)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-3)
+    assert got[3] == want[3]
+    assert got[2][0] == 2 and got[2][2] == "replay"  # captured again, replayed
+
+
+@pytest.mark.cuda
+def test_replay_launches_no_wrapper(freed, monkeypatch):
+    """After the warm-up call and the capture, a call runs no wrapper: with
+    every launch entry made to raise, the decode step and the train step
+    still run, their results equal eager ones, and the launch counts rise
+    by what one eager call adds."""
+    import numpy as np
+    from repro_torch.engine.rungs import Rung
+    from repro_torch.launch.steps import build_decode_step, init_train_state
+    from repro_torch.optim.optimizers import adam
+    dev = _device()
+    cfg = _llama("reduced")
+    model = Rung(name="r", attn_impl="pallas").build_model(cfg, dev)
+    params = model.init(model.generator(0))
+    cache = model.init_cache(4, 64, torch.float32)
+    tokens = torch.arange(4, dtype=torch.int32, device=dev)[:, None]
+    cache_len = torch.tensor([3, 0, 17, 40], dtype=torch.int32, device=dev)
+    step, eager = build_decode_step(model), build_decode_step(model, jit=False)
+    for _ in range(2):
+        step(params, cache, tokens, cache_len)
+    rung = Rung(name="r", attn_impl="pallas")
+    state = init_train_state(model, adam(), model.generator(0))
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 33)).astype(np.int32)}
+    train = rung.jitted_step(cfg, adam(), device=dev)
+    for _ in range(2):
+        train(state, batch)
+    before_cache = {k: v.clone() for k, v in cache.items()}
+
+    def refuse(*a, **k):
+        raise AssertionError("a replay called a kernel wrapper")
+
+    for mod, name in ((fa, "_decode_launch"), (fa, "_fwd_lse"), (fb, "flash_bwd_dq"),
+                      (fb, "flash_bwd_dkv")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = fa.all_launches()
+    tok, _, _ = step(params, cache, tokens, cache_len)
+    _, metrics = train(state, batch)
+    after = fa.all_launches()
+    assert step.last_call == "replay" and train.last_call == "replay"
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "flash_decode": cfg.n_layers, "flash_fwd": cfg.n_layers,
+        "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    assert bool(torch.isfinite(metrics["loss"]))
+    monkeypatch.undo()
+    want, _, _ = eager(params, before_cache, tokens, cache_len)
+    assert torch.equal(tok, want)
+    for k in cache:
+        torch.testing.assert_close(cache[k], before_cache[k], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_capture_of_a_step_that_syncs_raises():
+    """A step that reads a value back to the host runs eagerly on its first
+    call and raises, naming the step, when the second call captures it;
+    the card goes on working after."""
+    from repro_torch.launch.steps import CompiledStep
+    dev = _device()
+
+    def syncing(state, x):
+        state["w"].add_(x)
+        return float(state["w"].sum())  # a device-to-host read
+
+    step = CompiledStep(syncing, "syncing_step", state_argnums=(0,))
+    state = {"w": torch.zeros(8, device=dev)}
+    x = torch.ones(8, device=dev)
+    assert step(state, x) == 8.0 and step.last_call == "warmup"
+    with pytest.raises(RuntimeError, match="syncing_step"):
+        step(state, x)
+    assert step.captures == 0
+    y = torch.ones(8, device=dev) * 2
+    assert float(y.sum()) == 16.0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_arrival_counts_do_not_grow_during_capture():
+    """The split kernels' arrival counts are sized by the eager first call
+    on the capture stream; a buffer replaced by a larger one stays
+    allocated, since a graph may address it."""
+    dev = _device()
+    side = torch.cuda.Stream(dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.stream(side):
+        small = fa._arrivals(index, side.cuda_stream, 8)
+        big = fa._arrivals(index, side.cuda_stream, 64)
+    assert big.numel() >= 64 and any(b is small for b in fa._RETIRED)
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(g, stream=side):
+            fa._arrivals(index, side.cuda_stream, 128)
