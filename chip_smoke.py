@@ -123,6 +123,21 @@ Phases (any failure raises and the script exits non-zero):
    ``benchmarks/kernel_bench.py``'s shapes, 4096 x 2048 and 512 x 512, as
    its ``bench_rmsnorm`` drives the reference; the launch counts of both
    kernels over the run.
+16. Planner: llama3.2-1b at full width, batch 4 x 512, adam lr 3e-4, the
+   default ladder (``full``, ``accum``, ``lean``; pallas) explored through
+   ``ExplorationState`` by ``core.profiler.profile_rung`` on one state
+   carried from rung to rung (each rung's eager step, its capture, then at
+   least three replays timed with CUDA events; peak memory; the card's
+   power from nvidia-smi over the replays), planned by
+   ``plan_from_profiles``, then ``TrainSession`` on ``plan.rung_ladder()``
+   for 8 steps under ``2:6:3.0`` counted from the session's first step.
+   Prints each profile (ms, peak GB, W, J, the power's source, capture ms),
+   the pruned ladder and the selected choice, beside the card's name and
+   power limit. Fails unless the ladder is ``core.cost.ladder``'s, the
+   selected choice the fastest, every timed step a replay, every explored
+   and session step launched flash_fwd, flash_bwd_dq and flash_bwd_dkv 16 x
+   its microbatch count times, every loss finite, and the session made an
+   interference downgrade (a ladder of several rungs) or no migration (one).
 
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
@@ -146,7 +161,7 @@ and its autograd backward.
 
 Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
 ...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
-``{"rmsnorm": ...}`` and ``{"kernels": [...]}`` (all ten kernels), the card's name and power limit as ``nvidia-smi``
+``{"rmsnorm": ...}``, ``{"planner": ...}`` and ``{"kernels": [...]}`` (all ten kernels), the card's name and power limit as ``nvidia-smi``
 gives them, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1841,6 +1856,149 @@ def rmsnorm_path(ops, rn):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the Swan planner on the card
+# ---------------------------------------------------------------------------
+
+PLANNER = dict(trace="2:6:3.0", session_steps=8)  # the trace counts from the session's start
+
+
+def planner_phase(fa, cfg, smi: str):
+    """Phase 16: the default ladder explored by ``profile_rung`` through
+    ``ExplorationState`` on one state carried from rung to rung, planned by
+    ``plan_from_profiles``, then ``TrainSession`` on ``plan.rung_ladder()``;
+    with the checks of the module docstring. Returns its JSON object and the
+    launch counts of its exploration and session."""
+    from repro_torch.core.cost import ladder as cost_ladder
+    from repro_torch.core.planner import ExplorationState, plan_from_profiles
+    from repro_torch.core.profiler import profile_rung
+    from repro_torch.engine.events import InterferenceTrace
+    from repro_torch.engine.rungs import default_rung_ladder
+    from repro_torch.engine.session import TrainSession
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.optimizers import adam
+
+    batch_fn = make_batch_fn(cfg, TRAIN["batch"], TRAIN["seq"], seed=TRAIN["seed"])
+    rungs = default_rung_ladder(batch=TRAIN["batch"], microbatch=1, attn_impl="pallas")
+    micro = {r.name: r.microbatch for r in rungs}
+    opt = adam()
+    snaps, rung_of_step = [], []
+
+    def counted_batches(step):  # launches so far, at the start of every step
+        snaps.append(fa.all_launches())
+        return batch_fn(step)
+
+    def per_step_launches(names):
+        for i, rname in enumerate(names):
+            for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                n = snaps[i + 1][kname] - snaps[i][kname]
+                check(n == cfg.n_layers * micro[rname],
+                      f"planner step {i} on {rname}: {kname} launched {n} times, "
+                      f"not {cfg.n_layers} x {micro[rname]}")
+        return {k: snaps[-1][k] - snaps[0][k] for k in snaps[-1]}
+
+    model = rungs[0].build_model(cfg, "cuda")
+    carried = {"state": init_train_state(model, opt, model.generator(TRAIN["seed"])),
+               "step": 0}
+    del model
+
+    def profiler(rung):
+        # popped: the parameters a cast replaces are freed before the rung runs
+        prof, carried["state"] = profile_rung(
+            rung, cfg, carried.pop("state"), optimizer=opt, batch_fn=counted_batches,
+            start=carried["step"], lr=TRAIN["lr"], position=rungs.index(rung),
+            n=len(rungs), device="cuda")
+        carried["step"] += prof.meta["steps"]
+        rung_of_step.extend([rung.name] * prof.meta["steps"])
+        free_cuda()
+        print(f"[planner] {rung.name}: {prof.latency_s * 1e3:.2f} ms a step (median of "
+              f"{len(prof.meta['step_s'])} replays "
+              f"{[round(t * 1e3, 2) for t in prof.meta['step_s']]}), peak "
+              f"{prof.memory_bytes / 1e9:.2f} GB, {prof.power_w:.1f} W "
+              f"({prof.meta['power']}), {prof.energy_j:.2f} J a step, cost key "
+              f"{prof.cost_key}, capture {prof.meta['capture_ms']:.1f} ms, calls "
+              f"{prof.meta['calls']}, losses {[round(x, 4) for x in prof.meta['losses']]}; "
+              f"{smi}", flush=True)
+        return prof
+
+    print(f"[planner] {cfg.name} at full width, adam lr {TRAIN['lr']}, batch "
+          f"{TRAIN['batch']} x {TRAIN['seq']}: exploring {[r.name for r in rungs]}",
+          flush=True)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    explorer = ExplorationState(rungs, profiler)
+    while not explorer.complete:
+        explorer.explore_one()
+    explore_s = time.perf_counter() - t0
+    snaps.append(fa.all_launches())
+    explore_launches = per_step_launches(rung_of_step)
+    profiles = explorer.done
+    plan = plan_from_profiles(cfg.name, torch.cuda.get_device_name(0), profiles)
+    ladder_names = [p.name for p in plan.ladder]
+    fastest = min(profiles, key=lambda p: p.latency_s)
+    print(f"[planner] explored {plan.explored_names} in {explore_s:.1f} s "
+          f"({carried['step']} train steps); pruned ladder {ladder_names}; selected "
+          f"{plan.selected.name}; {smi}", flush=True)
+    check(ladder_names == [p.name for p in cost_ladder(profiles)],
+          f"the plan's ladder {ladder_names} is not core.cost.ladder's")
+    check(plan.selected is fastest, f"selected {plan.selected.name}, not the fastest "
+          f"profile {fastest.name}")
+    for prof in profiles:
+        check(prof.meta["calls"][:2] == ["warmup", "capture"]
+              and set(prof.meta["calls"][2:]) == {"replay"},
+              f"{prof.name}: calls {prof.meta['calls']}")
+    losses = [x for p in profiles for x in p.meta["losses"]]
+
+    # -- the session on the planned ladder -----------------------------------
+    planned = plan.rung_ladder()
+    micro.update({r.name: r.microbatch for r in planned})
+    start, steps = carried["step"], PLANNER["session_steps"]
+    b0, b1, slow = PLANNER["trace"].split(":")
+    trace = InterferenceTrace.parse(f"{start + int(b0)}:{start + int(b1)}:{slow}")
+    snaps.clear()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall_s = run_session(TrainSession, planned, cfg, counted_batches, start + steps,
+                              start=start, state=carried.pop("state"), optimizer=adam(),
+                              adaptive=True, trace=trace)
+    snaps.append(fa.all_launches())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rungs_by_step = [s.rung for s in res.timeline.steps]
+    session_launches = per_step_launches(rungs_by_step)
+    migrations = [(m.step, m.from_rung, m.to_rung, m.reason, m.kind)
+                  for m in res.timeline.migrations]
+    print(f"[planner] session on {[r.name for r in planned]} under {trace.to_json()}: "
+          f"migrations {migrations}; rung per step {rungs_by_step}; step ms "
+          f"{[round(x, 1) for x in step_ms(res)]}; losses "
+          f"{[round(x, 4) for x in res.losses]}; peak {peak_gb:.2f} GB; {smi}",
+          flush=True)
+    losses += res.losses
+    check(all(x == x and abs(x) < 1e9 for x in losses), f"planner losses {losses}")
+    if len(planned) > 1:
+        check(any(m[3] == "interference" for m in migrations),
+              f"no interference downgrade on the planned ladder: {migrations}")
+    else:
+        check(not migrations, f"a one-rung ladder migrated: {migrations}")
+    out = {"profiles": [{"name": p.name, "latency_ms": p.latency_s * 1e3,
+                         "peak_memory_gb": p.memory_bytes / 1e9, "power_w": p.power_w,
+                         "energy_j": p.energy_j, "cost_key": list(p.cost_key),
+                         "power_source": p.meta["power"],
+                         "capture_ms": p.meta["capture_ms"], "calls": p.meta["calls"],
+                         "step_ms": [t * 1e3 for t in p.meta["step_s"]],
+                         "losses": p.meta["losses"]} for p in profiles],
+           "ladder": ladder_names, "selected": plan.selected.name,
+           "collapsed_to": ladder_names[0] if len(ladder_names) == 1 else None,
+           "explore_s": explore_s, "explored_steps": start,
+           "session": {"rungs": rungs_by_step, "migrations": migrations,
+                       "losses": res.losses, "step_ms": step_ms(res),
+                       "peak_memory_gb": peak_gb, "wall_s": wall_s},
+           "device": smi}
+    del res
+    free_cuda()
+    return out, {k: explore_launches[k] + session_launches[k] for k in explore_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1920,6 +2078,8 @@ def main() -> int:
     lap("phases 12-14")
     rms_out, rms_launches = rmsnorm_path(ops, rn)
     lap("phase 15")
+    planner_out, planner_launches = planner_phase(fa, cfg, smi)
+    lap("phase 16")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -1991,6 +2151,8 @@ def main() -> int:
     # the f32 forward at each prefill length and at the train step's B4
     kernels[0]["ms_f32_by_shape"] = {f"B{c['shape'][0]} S{c['shape'][2]}": c["ms"]
                                      for c in fwd if c["dtype"] == "float32" and not c["lowp"]}
+    for e in kernels[:3]:  # the planner's exploration and session (phase 16)
+        e["launches_by_path"]["planner"] = planner_launches[e["name"]]
     for e in kernels[1:3]:
         e["ms_by_mode"] = by_mode(e["checks"], lambda c: c["shape"][0] == TRAIN["batch"])
     # the paths that ran after phase 4 launched these too
@@ -2007,6 +2169,7 @@ def main() -> int:
     print(json.dumps({"serve_spec": spec_out}))
     print(json.dumps({"cnn": cnn_out}))
     print(json.dumps({"rmsnorm": rms_out}))
+    print(json.dumps({"planner": planner_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

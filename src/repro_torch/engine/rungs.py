@@ -6,9 +6,12 @@ passive cost-model objects. A Rung is the runnable counterpart: the knobs a
 live session can actually switch mid-training (microbatch, attention kernel,
 parameter dtype) plus a lazily built and cached compiled train step from
 launch/steps.py (``jitted_step``, as in the reference: a ``CompiledStep``,
-captured as a CUDA graph on the card). ``default_rung_ladder`` builds the
-downgrade ladder the CLI runs. The reference's ``Rung.from_mesh_choice`` and
-``rungs_from_ladder`` (planner ladders onto rungs) wait for the planner.
+captured as a CUDA graph on the card). ``rungs_from_ladder`` maps a
+ChoiceProfile ladder onto Rungs so the planner's output becomes directly
+runnable: a ladder of MeshChoices (with ``mesh_shape=None``) or of the Rungs
+``core.profiler.profile_rung`` measured (``SwanPlan.rung_ladder``);
+``default_rung_ladder`` builds the downgrade ladder the CLI runs when no
+planner ran.
 
 Migration compatibility: every Rung here runs on the one card
 (``mesh_shape`` is always None), so any two exchange state in place (dtype
@@ -18,7 +21,7 @@ rungs and their checkpoint round-trip have no counterpart yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -66,6 +69,25 @@ class Rung:
     @property
     def dtype(self):
         return _DTYPES[self.param_dtype]
+
+    def rung_fields(self) -> dict:
+        """The switchable fields, as ``MeshChoice.rung_fields()`` gives a
+        mesh choice's: ``Rung.from_mesh_choice`` of a Rung rebuilds it."""
+        return {"microbatch": self.microbatch, "attn_impl": self.attn_impl,
+                "param_dtype": self.param_dtype, "mesh_shape": self.mesh_shape,
+                "chunk": self.chunk, "remat": self.remat,
+                "compression": self.compression}
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def from_mesh_choice(cls, choice, *, name: Optional[str] = None,
+                         **overrides) -> "Rung":
+        """Build a Rung from a core.choices.MeshChoice (or anything exposing
+        ``rung_fields()``, a Rung among them). A MeshChoice's mesh raises
+        unless ``mesh_shape=None`` overrides it: one card."""
+        fields = dict(choice.rung_fields())
+        fields.update(overrides)
+        return cls(name=name or getattr(choice, "name", "rung"), **fields)
 
     # -- executable surface ------------------------------------------------
     def build_model(self, cfg, device="cuda"):
@@ -128,6 +150,26 @@ class Rung:
             else self.rel_latency
         return ChoiceProfile(choice=self, latency_s=lat, energy_j=lat,
                              power_w=1.0, cost_key=(n - position,))
+
+
+def rungs_from_ladder(profiles: Sequence[ChoiceProfile], **overrides
+                      ) -> List[Rung]:
+    """Map a pruned ChoiceProfile ladder (fastest first, backed by
+    MeshChoices or Rungs) onto executable Rungs, preserving order; latency
+    estimates come from the profiles and interference sensitivities from
+    the cost model's ladder positions."""
+    if not profiles:
+        raise ValueError("empty ladder")
+    sens = ladder_sensitivities(len(profiles))
+    head_lat = profiles[0].latency_s
+    out = []
+    for i, p in enumerate(profiles):
+        out.append(Rung.from_mesh_choice(
+            p.choice, name=p.name,
+            interference_sensitivity=sens[i],
+            rel_latency=p.latency_s / max(head_lat, 1e-12),
+            latency_estimate_s=p.latency_s, **overrides))
+    return out
 
 
 def default_rung_ladder(*, batch: int, microbatch: int = 1,

@@ -1353,3 +1353,50 @@ def test_arrival_counts_do_not_grow_during_capture():
     with pytest.raises(RuntimeError, match="capture"):
         with torch.cuda.graph(g, stream=side):
             fa._arrivals(index, side.cuda_stream, 128)
+
+
+# ---------------------------------------------------------------------------
+# the measured rung profiler (core/profiler.profile_rung)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_profile_rung_times_replays_on_the_card(freed):
+    """The default ladder at reduced width, batch 4 x 64, one state carried
+    from rung to rung: each rung's first two calls are its eager step and
+    its capture, the timed ones replays (at least three); latency positive,
+    peak memory non-zero and within the card's, power read by nvidia-smi;
+    the steps train (the state's step counter counts them all)."""
+    import numpy as np
+    from repro_torch.core.profiler import profile_rung
+    from repro_torch.engine.rungs import default_rung_ladder
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.optimizers import adam
+    dev = _device()
+    cfg = _llama("reduced")
+    rungs = default_rung_ladder(batch=4, attn_impl="pallas")
+    model = rungs[0].build_model(cfg, dev)
+    state = init_train_state(model, adam(), model.generator(0))
+    batch_fn = make_batch_fn(cfg, 4, 64)
+    step = 0
+    for i, rung in enumerate(rungs):
+        before = fa.all_launches()["flash_fwd"]
+        prof, state = profile_rung(rung, cfg, state, optimizer=adam(), batch_fn=batch_fn,
+                                   start=step, lr=1e-4, position=i, n=len(rungs),
+                                   device=dev)
+        step += prof.meta["steps"]
+        calls = prof.meta["calls"]
+        assert calls[:2] == ["warmup", "capture"] and len(calls) >= 5
+        assert set(calls[2:]) == {"replay"} and len(prof.meta["step_s"]) == len(calls) - 2
+        assert prof.latency_s > 0 and prof.latency_s == float(np.median(prof.meta["step_s"]))
+        assert 0 < prof.memory_bytes <= torch.cuda.get_device_properties(dev).total_memory
+        assert prof.power_w > 0 and prof.meta["power"].startswith("nvidia-smi")
+        assert prof.energy_j == prof.power_w * prof.latency_s
+        assert prof.cost_key == (len(rungs) - i,) and prof.choice is rung
+        assert all(np.isfinite(prof.meta["losses"]))
+        assert fa.all_launches()["flash_fwd"] - before == \
+            cfg.n_layers * rung.microbatch * len(calls)
+        assert rung._step is None  # the graphs were dropped
+        assert state["params"]["embed"].dtype == rung.dtype
+    assert int(state["step"]) == step
