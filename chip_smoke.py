@@ -138,6 +138,27 @@ Phases (any failure raises and the script exits non-zero):
    and session step launched flash_fwd, flash_bwd_dq and flash_bwd_dkv 16 x
    its microbatch count times, every loss finite, and the session made an
    interference downgrade (a ladder of several rungs) or no migration (one).
+17. Co-tenancy: ``repro_torch.launch.mixed.main`` on the card, (a) at full
+   width: training (default rung ladder, adam, batch 4 x 512, pallas) beside
+   a contiguous serve engine of 8 slots over 1024 positions (f32 weights,
+   ``default_serve_ladder``) under the thermal trace ``0.2:0.25:3.0``, 48
+   ticks, an upgrade patience of 1; each job must migrate, the serve job must reach serve-lean (a bf16
+   KV cache under f32 queries: the mixed-dtype decode) and come back up,
+   with one decode capture per cache dtype; (b) cut to 2 layers (a
+   foreground pause checkpoints the state), paged, ``--admission-policy
+   swap``, ``--fg-burst 6:9`` and ``--chaos-seed 0``: pool_pressure,
+   ckpt_torn and fg_burst must apply, every pause resume at its step; (c)
+   the serve ladder walked down and up twice through ServeJob's migrations
+   at full width: captures stay at one per cache dtype, the second walk
+   allocates nothing, the first grows reserved memory by at most the bf16
+   cache's storage and one graph pool; (d) the phase-4 requests through a
+   ladder of slot caps only, migrating under a burst, token-identical to an
+   engine fixed at serve-full; (e) bf16-cache engines over f32 weights at 8
+   layers, contiguous and paged at draft depth 0 and 4 (the four
+   mixed-dtype kernels), held to the plain path's bf16-cache streams under
+   phase 5's rule; (f) bf16 weights over an f32 cache (bf16 queries over an
+   f32 cache), reported. Prints ticks and migrations per job, each rung's
+   median step ms, tokens/s by serve rung, captures and replays, memory.
 
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
@@ -157,12 +178,17 @@ bf16, and at a 5x5 case, against one ``F.conv2d(groups=C)`` as the library
 yardstick, and checks that a backward through it raises; and the RMSNorm
 forward and backward kernels at
 4096 x 2048 (f32, bf16), 512 x 512 and 4096 x 96 against ``F.rms_norm``
-and its autograd backward.
+and its autograd backward. Last, the decode kernels with the cache in
+another dtype than the queries (``MIXED_CASES``): f32 q over a bf16 cache in
+all four, bf16 q over an f32 cache in flash_decode, at the serve shape.
 
 Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
 ...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
-``{"rmsnorm": ...}``, ``{"planner": ...}`` and ``{"kernels": [...]}`` (all ten kernels), the card's name and power limit as ``nvidia-smi``
-gives them, and as the last line ``{"ok": true, "device": {...}}``.
+``{"rmsnorm": ...}``, ``{"planner": ...}``, ``{"cotenancy": ...}`` and
+``{"kernels": [...]}`` (all ten kernels, then the five mixed-dtype decode
+entries with their phase-17 launches), the card's name and power limit as
+``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -659,6 +685,113 @@ def check_flash_decode_spec(fa, ref, gather, paged: bool):
     return checks
 
 
+MIXED_CASES = [("flash_decode", torch.float32, torch.bfloat16),
+               ("flash_decode", torch.bfloat16, torch.float32),
+               ("flash_decode_paged", torch.float32, torch.bfloat16),
+               ("flash_decode_spec", torch.float32, torch.bfloat16),
+               ("flash_decode_spec_paged", torch.float32, torch.bfloat16)]
+
+
+def dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def check_mixed_decode(fa, ref, gather):
+    """The decode kernels with q and the cache in two dtypes, at the serve
+    shape (B8 K8 G4 hd64 over 1024 positions: contiguous Smax 1024, or 64
+    blocks of 16; speculative S = 5), ragged lengths including 0 and past
+    the capacity: f32 q over a bf16 cache (the serve-lean rung) in all four
+    kernels, and bf16 q over an f32 cache in flash_decode. Held to the
+    plain version at the f32 decode checks' tolerance (bf16 values are
+    exact in f32); a bf16 output against the plain version's f32 result
+    beside half a bf16 unit. Bytes bound with the cache at its own element
+    size; the library yardstick casts the bf16 operand to f32 first, then
+    SDPA (paged: then the gather), as the f32 checks' library column does."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B, K, G, hd, bs, T = (DEC[k] for k in ("B", "K", "G", "hd", "bs", "T"))
+    cap = bs * T
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    checks = []
+    for name, qdt, kvdt in MIXED_CASES:
+        spec, paged = "spec" in name, name.endswith("paged")
+        S = 5 if spec else 1
+        lens_list = ([0, 1, 193, 300, 511, 700, 1021, 1024] if spec
+                     else [0, 1, 193, 300, 511, 700, 1024, 1025])
+        lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        q = torch.randn((B, K) + ((S,) if spec else ()) + (G, hd), generator=g,
+                        device="cuda").to(qdt)
+        if paged:
+            kp, vp, table = paged_inputs(g, kvdt, B, K, hd, bs, T)
+            args = (q, kp, vp, table, lengths)
+        else:
+            kc, vc = (torch.randn(B, cap, K, hd, generator=g, device="cuda").to(kvdt)
+                      for _ in range(2))
+            args = (q, kc, vc, lengths)
+        kernel, plain = getattr(fa, name), getattr(ref, "ref_" + name)
+        fa.reset_launches()
+        out = kernel(*args)
+        check(fa.mixed_launches[f"{name}:{dtype_name(qdt)}:{dtype_name(kvdt)}"] == 1,
+              f"{name} with {qdt} q and a {kvdt} cache did not launch its "
+              f"mixed-dtype instantiation: {fa.mixed_launches}")
+        want = plain(q.float(), *args[1:])  # the plain version's f32 result
+        torch.cuda.synchronize()
+        check(out.dtype == qdt, f"{name}: output {out.dtype}, not q's {qdt}")
+        if qdt == torch.bfloat16:
+            err, ok = max_err_bf16_out(out, want, F32_TOL)
+        else:
+            err, ok = max_err(out, want, F32_TOL)
+        ok = ok and (spec or not bool(out[0].any()))  # a length-0 row: zeros
+        # SDPA in f32 over (B, H, S, hd) queries, head h = k*G + g, with the
+        # (per-row causal) length mask
+        if spec:
+            qh = q.permute(0, 1, 3, 2, 4).reshape(B, K * G, S, hd)
+        else:
+            qh = q.reshape(B, K * G, 1, hd)
+        limit = (lengths[:, None].long() + (torch.arange(S, device="cuda") + 1
+                                            if spec else 0)).clamp(max=cap)
+        if not spec:
+            limit = limit.expand(B, 1)
+        mask = (torch.arange(cap, device="cuda")[None, None, :]
+                < limit[:, :, None])[:, None]
+
+        def library():
+            qf = qh.float()
+            if paged:
+                kh = gather(kp.float(), table).transpose(1, 2)
+                vh = gather(vp.float(), table).transpose(1, 2)
+            else:
+                kh, vh = (x.float().transpose(1, 2) for x in (kc, vc))
+            return F.scaled_dot_product_attention(qf, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        q_elt, kv_elt = q.element_size(), torch.finfo(kvdt).bits // 8
+        live = sum(min(n + S, cap) if spec else min(n, cap) for n in lens_list)
+        pairs = int(limit.sum()) * K * G
+        nbytes = live * K * 2 * hd * kv_elt + 2 * q.numel() * q_elt + B * 4 \
+            + (B * T * 4 if paged else 0)
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, pairs * 4 * hd / F32_FLOPS
+        if paged:
+            calls = "upcast + gather + SDPA"
+        else:
+            calls = "upcast + SDPA"
+        c = {"name": name, "q_dtype": dtype_name(qdt), "kv_dtype": dtype_name(kvdt),
+             "shape": list(q.shape) + ([bs, T] if paged else [cap]),
+             "lengths": lens_list, "dtype": f"{dtype_name(qdt)} q, {dtype_name(kvdt)} KV",
+             "lowp": False, "max_abs_err": err, "tol": F32_TOL["atol"], "ok": ok,
+             "ms": time_ms(lambda: kernel(*args)),
+             "plain_ms": time_ms(lambda: plain(*args)),
+             "library_ms": time_ms(library), "library_calls": calls,
+             "bound_ms": max(by_bytes, by_ops) * 1e3,
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+        print(f"[kernels] {name} {c['dtype']}: max_abs_err={err:.3g} (tol "
+              f"{c['tol']}) kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+              f"library {c['library_ms']:.4f} ms ({calls}), bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+        checks.append(c)
+    return checks
+
+
 DW_MAIN = (128, 32, 32, 192)  # MobileNetV2's largest stride-1 depthwise input, batch 128
 # every stride-1 depthwise layer of the two depthwise CNNs (models/cnn.py with
 # configs/cnn_paper.py), all 3x3: (H, W, C) and its launches in one forward
@@ -942,12 +1075,13 @@ def profile_paged_prefill(serve, model, params, req, **engine_kw):
 
 
 @torch.inference_mode()
-def top2_margin(model, params, prompt, tokens, index):
+def top2_margin(model, params, prompt, tokens, index, cache_dtype=torch.float32):
     """The plain path's top-2 logit margin where it chose ``tokens[index]``,
-    replaying the request alone (prefill, then greedy decode)."""
+    replaying the request alone (prefill, then greedy decode over a
+    ``cache_dtype`` cache)."""
     logits, pcache = model.prefill(params, {"tokens": torch.as_tensor(
         prompt, device="cuda")[None]})
-    cache = model.init_cache(1, SERVE["max_seq"], torch.float32)
+    cache = model.init_cache(1, SERVE["max_seq"], cache_dtype)
     for name in cache:
         cache[name][:, :, :len(prompt)] = pcache[name]
     for i in range(index):
@@ -975,10 +1109,10 @@ def shared_prefix_requests(serve, reqs):
     return out
 
 
-def same_streams(label, got, want, naive, params, reqs):
+def same_streams(label, got, want, naive, params, reqs, cache_dtype=torch.float32):
     """Phase 5's rule: streams token-identical, or diverging only where the
-    plain path's top-2 logit margin is below LOGIT_TOL. Returns the number
-    of identical streams."""
+    plain path's top-2 logit margin (over a ``cache_dtype`` cache) is below
+    LOGIT_TOL. Returns the number of identical streams."""
     check(sorted(got) == sorted(want), f"{label}: requests missing")
     identical = 0
     by_uid = {r.uid: r for r in reqs}
@@ -989,7 +1123,7 @@ def same_streams(label, got, want, naive, params, reqs):
             continue
         check(len(a) == len(b), f"{label}: uid {u} has {len(a)} tokens, not {len(b)}")
         i = next(j for j in range(len(a)) if a[j] != b[j])
-        margin = top2_margin(naive, params, by_uid[u].prompt, b, i)
+        margin = top2_margin(naive, params, by_uid[u].prompt, b, i, cache_dtype)
         print(f"[{label}] uid {u} diverges at token {i}: {a[i]} vs {b[i]}, "
               f"plain top-2 margin {margin:.3g} (tolerance {LOGIT_TOL})")
         check(margin < LOGIT_TOL, f"{label}: uid {u} diverges where the margin "
@@ -1999,6 +2133,385 @@ def planner_phase(fa, cfg, smi: str):
     return out, {k: explore_launches[k] + session_launches[k] for k in explore_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: serving co-scheduled with training under one arbiter
+# ---------------------------------------------------------------------------
+
+# (a) full width: training at batch 4 x 512 beside a contiguous serve engine
+# of 8 slots over 1024 positions, f32 weights; the thermal trace's summed
+# draw (2.0 on both top rungs) trips the throttle at tick 7, the arbiter
+# walks train full -> accum, serve full -> capped, train -> lean, serve ->
+# lean (bf16 KV), the die cools below 0.5 and both come back up. An upgrade
+# patience of 1 (the CLI's default is 5): a job walks up on its first clear
+# tick, so the return up is decided by the trace, not by five ticks in a row
+# whose wall times stay within 8% of one calibrating step (on a card whose
+# step times vary that much, five such ticks may not come within the run;
+# the throttle's 3x keeps the walks down trace-driven either way). 8 requests
+# in 8 slots: every request is admitted at tick 0, so no eager prefill lands
+# inside the measured steps. (b) cut to 2 layers (a foreground pause
+# checkpoints the state; 15 GB at full depth), paged, swap policy, a
+# foreground burst and a seeded chaos schedule.
+COTENANT = dict(ticks=48, thermal="0.2:0.25:3.0", patience=1, requests=8,
+                prompt_len=256, gen=80, layers_b=2, ticks_b=40, requests_b=24,
+                prompt_len_b=64, gen_b=24, fg_burst="6:9", chaos_seed=0,
+                walk_steps=3, walk_gen=96)
+
+
+def mixed_argv(**kw):
+    argv = ["--arch", "llama3.2-1b", "--batch", str(TRAIN["batch"]), "--seq",
+            str(TRAIN["seq"]), "--optimizer", "adam", "--lr", str(TRAIN["lr"]),
+            "--attn-impl", "pallas", "--slots", str(SERVE["slots"]), "--max-seq",
+            str(SERVE["max_seq"])]
+    for k, v in kw.items():
+        argv += [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)])
+    return argv
+
+
+def run_mixed(fa, mixed, label, argv, layers=None):
+    """``launch.mixed.main(argv)`` on the card (both models cut to
+    ``layers``, where given), the launch counts set to 0 just before and
+    read just after. Returns (the RuntimeResult, the JSON payload main
+    wrote, a summary: ticks and migrations per job, each rung's steps and
+    median ms, serve tokens/s by rung, decode captures and replays, peak
+    memory, launches)."""
+    import tempfile
+    get_config = mixed.get_config
+    if layers is not None:  # depth cut as phase 7 cuts it; widths are the published ones
+        mixed.get_config = lambda name: dataclasses.replace(get_config(name),
+                                                            n_layers=layers)
+    with tempfile.TemporaryDirectory(prefix="mixed_") as tmp:
+        out = str(Path(tmp) / "mixed.json")
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = mixed.main(argv + ["--json-out", out])
+        finally:
+            mixed.get_config = get_config
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        payload = json.loads(Path(out).read_text())
+    serve_job = res.jobs["serve"]
+    steps = serve_job.engine.compiled_steps()
+    summary = {
+        "wall_s": wall, "ticks": res.ticks,
+        "steps": {n: len(j.timeline.steps) for n, j in res.jobs.items()},
+        "migrations": {n: [(m.step, m.from_rung, m.to_rung, m.reason)
+                           for m in res.timeline.migrations if m.job == n]
+                       for n in res.jobs},
+        "per_rung": {n: mixed.rung_summary(res.jobs[n].timeline)
+                     for n in ("train", "serve")},
+        "serve_tokens": serve_job.engine.tokens_out,
+        "decode_captures": sum(f.captures for f in steps),
+        "decode_replays": sum(f.replays for f in steps),
+        "cache_dtypes": sorted(str(d).replace("torch.", "")
+                               for d in serve_job.engine._kv_store),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": fa.all_launches(), "mixed_launches": dict(fa.mixed_launches),
+        "preemptions": res.preemptions,
+    }
+    print(f"[cotenancy] {label}: {res.ticks} ticks in {wall:.1f} s, steps "
+          f"{summary['steps']}, peak {summary['peak_memory_gb']:.2f} GB", flush=True)
+    for n, migs in summary["migrations"].items():
+        print(f"[cotenancy] {label}: {n} migrations {migs}")
+    for n, rungs in summary["per_rung"].items():
+        unit = "samples" if n == "train" else "tokens"
+        for rung, r in rungs.items():
+            print(f"[cotenancy] {label}: {n} on {rung}: {r['steps']} ticks, median "
+                  f"{r['median_ms']:.2f} ms over {r['steady']} steady, "
+                  f"{r['work_per_s']:.1f} {unit}/s")
+    print(f"[cotenancy] {label}: decode captures {summary['decode_captures']}, "
+          f"replays {summary['decode_replays']}, cache dtypes "
+          f"{summary['cache_dtypes']}; launches {summary['launches']}; mixed "
+          f"{ {k: v for k, v in summary['mixed_launches'].items() if v} }", flush=True)
+    return res, payload, summary
+
+
+def check_tokens(label, engine, vocab):
+    for slot, toks in enumerate(engine.generated):
+        check(all(0 <= t < vocab for t in toks), f"{label}: slot {slot} token out of range")
+    for u, f in engine.finished.items():
+        check(f.tokens and all(0 <= t < vocab for t in f.tokens),
+              f"{label}: request {u} emitted {f.tokens}")
+
+
+def ladder_walk(fa, serve, build_model, cfg, reqs):
+    """(c) The default serve ladder walked down (serve-full -> capped ->
+    lean, bf16 KV) and back up twice, through ServeJob's migrations, on a
+    contiguous engine at full width decoding 8 residents: each cache dtype's
+    decode graph is captured once and replayed after every later walk,
+    the second walk allocates nothing, and memory grows across the first
+    by at most the bf16 cache's storage and one graph pool (the memory the
+    first capture reserved)."""
+    from repro_torch.engine.jobs import ServeJob, default_serve_ladder
+    model = build_model(cfg, impl="pallas", device="cuda")
+    params = model.init(model.generator(0))
+    engine = serve.ContinuousBatchingEngine(model, params, max_batch=SERVE["slots"],
+                                            max_seq=SERVE["max_seq"])
+    job = ServeJob(engine, [serve.Request(uid=r.uid, prompt=r.prompt,
+                                          max_new_tokens=COTENANT["walk_gen"])
+                            for r in reqs[:SERVE["slots"]]],
+                   rungs=default_serve_ladder(SERVE["slots"]), adaptive=False)
+    fa.reset_launches()
+    job.prepare()
+    tick = 0
+    warm = []
+
+    def run(n):
+        nonlocal tick
+        for _ in range(n):
+            warm.append((job.active_rung.name, job.step(tick).warmup))
+            tick += 1
+
+    def mark():
+        # a capture empties the allocator's cache as it starts, so every mark
+        # does too: reserved memory is then what is live, graph pools included
+        torch.cuda.synchronize()
+        free_cuda()
+        return (torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved(),
+                engine._decode.captures, engine._decode.replays)
+
+    run(1)  # admissions and the eager first call
+    before_capture = mark()
+    run(1)  # the capture
+    pool_bytes = mark()[1] - before_capture[1]
+    check(pool_bytes > 0, f"ladder walk: the first capture reserved {pool_bytes} bytes")
+    run(COTENANT["walk_steps"] - 2)
+    marks = [mark()]
+    for _ in range(2):
+        for direction in ("down", "down", "up", "up"):
+            job.migrate(direction, "walk", tick)
+            run(COTENANT["walk_steps"])
+        marks.append(mark())
+    store_bytes = sum(t.numel() * t.element_size()
+                      for t in engine._kv_store[torch.bfloat16].values())
+    out = {"peak_allocated_gb": [m[0] / 1e9 for m in marks],
+           "reserved_gb": [m[1] / 1e9 for m in marks],
+           "captures": [m[2] for m in marks], "replays": [m[3] for m in marks],
+           "bf16_store_gb": store_bytes / 1e9, "first_capture_pool_gb": pool_bytes / 1e9,
+           "launches": fa.all_launches(), "mixed_launches": dict(fa.mixed_launches),
+           "warmup_ticks": [w for w in warm if w[1]]}
+    print(f"[cotenancy] ladder walk x2: captures {out['captures']}, replays "
+          f"{out['replays']}; max_memory_allocated before the first walk to "
+          f"serve-lean {out['peak_allocated_gb'][0]:.3f} GB, after the walks back "
+          f"{out['peak_allocated_gb'][1]:.3f}, {out['peak_allocated_gb'][2]:.3f} GB; "
+          f"reserved {[round(x, 3) for x in out['reserved_gb']]} GB; bf16 cache "
+          f"storage {out['bf16_store_gb']:.3f} GB, first capture's pool "
+          f"{out['first_capture_pool_gb']:.3f} GB; warmup ticks {out['warmup_ticks']}",
+          flush=True)
+    check(job.active_rung.name == "serve-full" and engine.cache["k"].dtype == torch.float32,
+          "ladder walk: not back on serve-full's f32 cache")
+    check(out["captures"] == [1, 2, 2], f"ladder walk: captures {out['captures']}, "
+          f"want one per cache dtype (f32, bf16) and none on the second walk")
+    check(marks[2][:2] == marks[1][:2], f"ladder walk: the second walk allocated "
+          f"memory: {marks[1][:2]} -> {marks[2][:2]}")
+    slack = 8 << 20  # the allocator's 2 MiB segments
+    check(marks[1][1] - marks[0][1] <= store_bytes + pool_bytes + slack,
+          f"ladder walk: reserved memory grew by {marks[1][1] - marks[0][1]} bytes, "
+          f"more than the bf16 storage ({store_bytes}) and one graph pool ({pool_bytes})")
+    check(out["mixed_launches"]["flash_decode:float32:bfloat16"] > 0,
+          "ladder walk: serve-lean did not launch the mixed-dtype decode")
+    engine.run([])
+    check(sorted(engine.finished) == [r.uid for r in reqs[:SERVE["slots"]]],
+          "ladder walk: requests missing")
+    check_tokens("ladder walk", engine, cfg.vocab_size)
+    del job, engine, model, params
+    free_cuda()
+    return out
+
+
+def slot_cap_streams(fa, serve, build_model, cfg, reqs):
+    """(d) The phase-4 requests through a ServeJob that migrates along a
+    ladder of slot caps only (default_serve_ladder without the bf16 rung,
+    virtual latencies under a burst), and through one fixed at serve-full:
+    token-identical streams, since caps change scheduling, not math."""
+    from repro_torch.engine.events import InterferenceTrace
+    from repro_torch.engine.jobs import ServeJob, default_serve_ladder, trace_latency_fn
+    from repro_torch.engine.runtime import SwanRuntime
+    model = build_model(cfg, impl="pallas", device="cuda")
+    params = model.init(model.generator(0))
+    runs = {}
+    for migrating in (False, True):
+        rungs = default_serve_ladder(SERVE["slots"], include_bf16_kv=False)
+        for r in rungs:
+            r.latency_estimate_s = 0.01 * r.rel_latency
+        trace = InterferenceTrace.parse("10:40:4.0") if migrating else None
+        engine = serve.ContinuousBatchingEngine(model, params, max_batch=SERVE["slots"],
+                                                max_seq=SERVE["max_seq"])
+        job = ServeJob(engine, [serve.Request(uid=r.uid, prompt=r.prompt,
+                                              max_new_tokens=r.max_new_tokens)
+                                for r in reqs],
+                       rungs=rungs, latency_fn=trace_latency_fn(trace),
+                       adaptive=migrating, name="serve")
+        fa.reset_launches()
+        res = SwanRuntime([job], trace=trace).run(100_000)
+        runs[migrating] = (streams_of(engine.finished),
+                           [(m.step, m.from_rung, m.to_rung) for m in res.timeline.migrations],
+                           fa.all_launches())
+        del job, engine
+    (fixed, _, n_fixed), (moved, migs, n_moved) = runs[False], runs[True]
+    print(f"[cotenancy] slot caps only: migrations {migs}; streams "
+          f"{'token-identical' if moved == fixed else 'DIFFER'} to serve-full's "
+          f"({len(fixed)} requests); flash_decode launches {n_moved['flash_decode']} "
+          f"/ {n_fixed['flash_decode']}", flush=True)
+    check(len(migs) >= 2, f"slot caps only: the burst forced {migs}")
+    check(moved == fixed, "slot caps only: the migrating engine's streams differ "
+          "from the fixed one's")
+    del model, params
+    free_cuda()
+    return {"migrations": migs, "identical": True, "requests": len(fixed),
+            "launches": n_moved}
+
+
+def bf16_cache_streams(fa, serve, build_model, cfg, reqs):
+    """(e) Engines with a bf16 cache over f32 weights (the serve-lean
+    rung's arithmetic), full width cut to PAGED["layers"] as phases 9-11,
+    the first 8 phase-4 requests: through the kernels contiguous and paged,
+    each at draft depth 0 and 4 (the four mixed-dtype kernels), held to the
+    plain path's contiguous bf16-cache streams under phase 5's rule (the
+    margin over a bf16 cache). (f) f32 queries' converse: bf16 weights over
+    the default f32 cache, through the kernels and the plain path; the
+    streams are reported, not held (bf16 weights round every product)."""
+    from repro_torch.launch.steps import cast_params
+    pallas = build_model(cfg, impl="pallas", device="cuda")
+    naive = build_model(cfg, impl="naive", device="cuda")
+    params = pallas.init(pallas.generator(0))
+    sub = [serve.Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+           for r in reqs[:SERVE["slots"]]]
+    bf = torch.bfloat16
+    want, _, _ = run_engine(serve, naive, params, sub, cache_dtype=bf)
+    want = streams_of(want)
+    out = {}
+    for layout in ("contig", "paged"):
+        for depth in (0, 4):
+            fa.reset_launches()
+            done, engine, wall = run_engine(serve, pallas, params, sub, cache_dtype=bf,
+                                            kv_layout=layout, draft_depth=depth)
+            mixed = {k: v for k, v in fa.mixed_launches.items() if v}
+            key = f"{layout} depth {depth}"
+            ident = same_streams(f"bf16 KV {key}", streams_of(done), want, naive,
+                                 params, sub, cache_dtype=bf)
+            kernel = {("contig", 0): "flash_decode", ("paged", 0): "flash_decode_paged",
+                      ("contig", 4): "flash_decode_spec",
+                      ("paged", 4): "flash_decode_spec_paged"}[(layout, depth)]
+            check(fa.mixed_launches[f"{kernel}:float32:bfloat16"] > 0,
+                  f"bf16 KV {key}: {kernel} ran no f32-q, bf16-KV launch: {mixed}")
+            check(engine.cache["k"].dtype == bf, f"bf16 KV {key}: cache {engine.cache['k'].dtype}")
+            out[key] = {"identical_streams": ident, "tok_s": engine.tokens_out / wall,
+                        "mixed_launches": mixed}
+            print(f"[cotenancy] bf16 KV over f32 weights, {key}: {ident}/{len(want)} "
+                  f"streams token-identical to the plain path's, "
+                  f"{engine.tokens_out / wall:.1f} tok/s, launches {mixed}", flush=True)
+            del engine, done
+    # (f) bf16 weights, f32 cache: bf16 queries over an f32 cache
+    bparams = cast_params(params, bf)
+    fa.reset_launches()
+    done_b, engine_b, wall_b = run_engine(serve, pallas, bparams, sub)
+    mixed = {k: v for k, v in fa.mixed_launches.items() if v}
+    check(fa.mixed_launches["flash_decode:bfloat16:float32"] > 0,
+          f"bf16 weights: no bf16-q, f32-KV launch: {mixed}")
+    check(engine_b.cache["k"].dtype == torch.float32, "bf16 weights: cache not f32")
+    check(sorted(done_b) == [r.uid for r in sub], "bf16 weights: requests missing")
+    check_tokens("bf16 weights", engine_b, cfg.vocab_size)
+    done_bn, _, _ = run_engine(serve, naive, bparams, sub)
+    same = sum(streams_of(done_b)[u] == f.tokens for u, f in done_bn.items())
+    out["bf16 weights, f32 cache"] = {"identical_streams": same,
+                                      "tok_s": engine_b.tokens_out / wall_b,
+                                      "mixed_launches": mixed}
+    print(f"[cotenancy] bf16 weights over an f32 cache: {same}/{len(sub)} streams "
+          f"token-identical to the plain path's (reported, not held), "
+          f"{engine_b.tokens_out / wall_b:.1f} tok/s, launches {mixed}", flush=True)
+    del engine_b, done_b, done_bn, pallas, naive, params, bparams
+    free_cuda()
+    return out
+
+
+def cotenancy_phase(fa, serve, build_model, cfg, reqs):
+    """Phase 17: ``launch.mixed.main`` on the card, (a) at full width and
+    (b) cut to 2 layers with the paged swap engine, a foreground burst and
+    chaos; then (c) the ladder walked twice, (d) slot-cap migrations against
+    a fixed engine, (e) bf16-cache engines against the plain path and (f)
+    bf16 weights over an f32 cache. Returns (the JSON object, the launch
+    counts of each path, the mixed-dtype launch counts of each path)."""
+    from repro_torch.launch import mixed
+    C = COTENANT
+    launches, mixed_launches = {}, {}
+    # -- (a) full width --------------------------------------------------------
+    res, payload, a = run_mixed(fa, mixed, "full width", mixed_argv(
+        ticks=C["ticks"], requests=C["requests"], prompt_len=C["prompt_len"],
+        gen=C["gen"], thermal_trace=C["thermal"], upgrade_patience=C["patience"]))
+    launches["cotenancy"], mixed_launches["cotenancy"] = a["launches"], a["mixed_launches"]
+    serve_steps = res.jobs["serve"].timeline.steps
+    serve_rungs = [s.rung for s in serve_steps]
+    # each serve tick: rung, wall ms, the ms the monitor read, warmup
+    a["serve_ticks"] = [(s.rung, round(1e3 * s.latency_s, 3), round(1e3 * s.observed_s, 3),
+                         s.warmup) for s in serve_steps]
+    print(f"[cotenancy] full width: serve ticks {a['serve_ticks']}", flush=True)
+    smig, tmig = a["migrations"]["serve"], a["migrations"]["train"]
+    check(tmig and smig, f"full width: train {tmig}, serve {smig}: each job must migrate")
+    check("serve-lean" in serve_rungs, "full width: the serve job never reached serve-lean")
+    check(any(m[1] == "serve-lean" for m in smig),
+          f"full width: the serve job did not come back up from serve-lean: {smig}")
+    check(a["mixed_launches"]["flash_decode:float32:bfloat16"] > 0,
+          "full width: serve-lean did not launch the f32-q, bf16-KV decode")
+    check(a["decode_captures"] == len(a["cache_dtypes"]),
+          f"full width: {a['decode_captures']} decode captures for cache dtypes "
+          f"{a['cache_dtypes']}: want one per signature")
+    losses = res.jobs["train"].result().losses
+    check(losses and all(np.isfinite(losses)), f"full width: losses {losses}")
+    check(a["launches"]["flash_bwd_dq"] > 0 and a["launches"]["flash_decode"] > 0,
+          f"full width: launches {a['launches']}")
+    check_tokens("full width", res.jobs["serve"].engine, cfg.vocab_size)
+    a["losses"] = [losses[0], losses[-1]]
+    del res
+    free_cuda()
+    # -- (b) cut to 2 layers: paged, swap, foreground burst, chaos -------------
+    res, payload, b = run_mixed(fa, mixed, f"{C['layers_b']} layers", mixed_argv(
+        ticks=C["ticks_b"], requests=C["requests_b"], prompt_len=C["prompt_len_b"],
+        gen=C["gen_b"], thermal_trace=C["thermal"], kv_layout="paged",
+        admission_policy="swap", fg_burst=C["fg_burst"], chaos_seed=C["chaos_seed"]),
+        layers=C["layers_b"])
+    launches["cotenancy_paged"] = b["launches"]
+    mixed_launches["cotenancy_paged"] = b["mixed_launches"]
+    applied = set(payload["chaos"]["applied"])
+    b["chaos_applied"] = sorted(applied)
+    b["chaos_skipped"] = sorted({e["kind"] for e in payload["chaos"]["log"] if "skipped" in e})
+    print(f"[cotenancy] {C['layers_b']} layers: chaos.applied {sorted(applied)}, "
+          f"skipped {b['chaos_skipped']}, preemptions {res.preemptions}", flush=True)
+    check({"pool_pressure", "ckpt_torn", "fg_burst"} <= applied,
+          f"{C['layers_b']} layers: chaos applied only {sorted(applied)}")
+    train = res.jobs["train"]
+    pauses = [m.step for m in train.timeline.migrations if m.reason == "pause"]
+    resumes = [m.step for m in train.timeline.migrations if m.reason == "resume"]
+    check(res.preemptions >= 1 and pauses and pauses == resumes,
+          f"{C['layers_b']} layers: pauses {pauses} resumed at {resumes}")
+    check([s.step for s in train.timeline.steps] == list(range(len(train.timeline.steps))),
+          f"{C['layers_b']} layers: train steps not contiguous")
+    check(all(np.isfinite(train.result().losses)), f"{C['layers_b']} layers: losses")
+    check(b["launches"]["flash_decode_paged"] > 0,
+          f"{C['layers_b']} layers: no paged decode launch: {b['launches']}")
+    check_tokens(f"{C['layers_b']} layers", res.jobs["serve"].engine, cfg.vocab_size)
+    b["pauses"], b["resumes"] = pauses, resumes
+    b["serve_stats"] = {k: payload["serve_stats"].get(k) for k in (
+        "held_blocks", "swap_outs", "swap_ins", "timeouts", "rejected", "accepting")}
+    del res, train
+    free_cuda()
+    # -- (c) the ladder walked twice, (d) slot caps, (e)-(f) bf16 caches -------
+    walk = ladder_walk(fa, serve, build_model, cfg, reqs)
+    launches["ladder_walk"], mixed_launches["ladder_walk"] = walk["launches"], \
+        walk["mixed_launches"]
+    caps = slot_cap_streams(fa, serve, build_model, cfg, reqs)
+    launches["slot_caps"] = caps["launches"]
+    cut = dataclasses.replace(cfg, n_layers=PAGED["layers"])
+    bf16 = bf16_cache_streams(fa, serve, build_model, cut, reqs)
+    for key, v in bf16.items():
+        mixed_launches[f"bf16_kv {key}"] = v["mixed_launches"]
+    out = {"full_width": a, "cut": b, "ladder_walk": walk, "slot_caps": caps,
+           "bf16_kv": bf16, "config": C}
+    return out, launches, mixed_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2057,8 +2570,9 @@ def main() -> int:
     spec_paged = check_flash_decode_spec(fa, ref, gather_paged_kv, paged=True)
     dwc = check_depthwise(dw, ref)
     rms_fwd, rms_bwd = check_rmsnorm(rn, ref)
+    mixed_dec = check_mixed_decode(fa, ref, gather_paged_kv)
     for c in (fwd + dec + bwd_dq + bwd_dkv + dec_paged + spec + spec_paged + dwc
-              + rms_fwd + rms_bwd):
+              + rms_fwd + rms_bwd + mixed_dec):
         check(c["ok"], f"kernel disagrees with its plain version: {c}")
     lap("phase 3")
 
@@ -2080,6 +2594,9 @@ def main() -> int:
     lap("phase 15")
     planner_out, planner_launches = planner_phase(fa, cfg, smi)
     lap("phase 16")
+    cotenancy_out, cotenancy_launches, cotenancy_mixed = cotenancy_phase(
+        fa, serve, build_model, cfg, reqs)
+    lap("phase 17")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -2161,7 +2678,22 @@ def main() -> int:
             n = path_launches[p].get(e["name"], 0)
             if n and p not in e["launches_by_path"]:
                 e["launches_by_path"][p] = n
+        for p, counts in cotenancy_launches.items():  # phase 17
+            if counts.get(e["name"], 0):
+                e["launches_by_path"][p] = counts[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
+    # the decode kernels' mixed-dtype instantiations (phase 3's checks,
+    # phase 17's launches): a KV cache in another dtype than the queries'
+    replaces = {e["name"]: e["replaces"] for e in kernels}
+    for c in mixed_dec:
+        key = f"{c['name']}:{c['q_dtype']}:{c['kv_dtype']}"
+        by_path = {p: n[key] for p, n in cotenancy_mixed.items() if n.get(key)}
+        check(by_path, f"phase 17 launched no {key}")
+        e = entry(f"{c['name']} ({c['q_dtype']} q, {c['kv_dtype']} KV)",
+                  "src/repro_torch/csrc/" + ("flash_decode_spec.cu" if "spec" in c["name"]
+                                             else "flash_decode_paged.cu"),
+                  replaces[c["name"]], [c], by_path)
+        kernels.append(e)
     print(json.dumps({"serve": serve_out}))
     print(json.dumps({"train": dict(train_out, build_s=build_s, seconds=seconds,
                                     seconds_total=time.perf_counter() - t_start)}))
@@ -2170,6 +2702,7 @@ def main() -> int:
     print(json.dumps({"cnn": cnn_out}))
     print(json.dumps({"rmsnorm": rms_out}))
     print(json.dumps({"planner": planner_out}))
+    print(json.dumps({"cotenancy": cotenancy_out}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -56,7 +56,10 @@
 //
 // Layout: q (B,K,G,hd); k (B,Smax,K,hd) or k_pool (NB,bs,K,hd), v likewise
 // with hdv; table (B,T) int32, lengths (B,) int32, out (B,K,G,hdv), all
-// contiguous, f32 or bf16, hd a multiple of 4, hdv <= 128; the workspace
+// contiguous, hd a multiple of 4, hdv <= 128; q and out f32 or bf16 (TQ),
+// the cache f32 or bf16 (TKV) independently: staged in its own type and
+// upcast in registers, as the reference casts q, k and v to the dots' type
+// inside its kernel (a bf16 cache halves the bytes a call reads); the workspace
 // ws_ml (B*K, splits, G, 2) and ws_acc (B*K, splits, G, hdv) f32. The
 // kernels allocate nothing and launch on the caller's stream. This file is
 // self-contained (no shared header), so the build's hash of it covers
@@ -200,16 +203,16 @@ __host__ __device__ inline int chunk_positions(int bs) {
 // PAGED: k and v are pools read through the table, n_cache = NB pool blocks;
 // else the contiguous cache, n_cache = Smax, bs = kChunk and nT =
 // ceil(Smax / kChunk) (no table).
-template <typename T, int JV, bool LOWP, bool PAGED>
+template <typename TQ, typename TKV, int JV, bool LOWP, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_split(const T* __restrict__ q, const T* __restrict__ k_pool,
-                   const T* __restrict__ v_pool, const int* __restrict__ table,
-                   const int* __restrict__ lengths, T* __restrict__ out,
+flash_decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
+                   const TKV* __restrict__ v_pool, const int* __restrict__ table,
+                   const int* __restrict__ lengths, TQ* __restrict__ out,
                    float* __restrict__ ws_ml, float* __restrict__ ws_acc,
                    int* __restrict__ arrivals, int K, int G,
                    int n_cache, int bs, int nT, int hd, int hdv, float scale, int splits,
                    int bps, int kcw, int vcw) {
-  const Layout lay(hd, hdv, bps, (int)sizeof(T));
+  const Layout lay(hd, hdv, bps, (int)sizeof(TKV));
   extern __shared__ float4 smem4[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
   float* qs = reinterpret_cast<float*>(sm);      // [kRows][hd]
@@ -251,7 +254,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   const int ch = chunk_positions(bs);
   const int n_chunks = (p1 - p0 + ch - 1) / ch;
-  const int elt = (int)sizeof(T);
+  const int elt = (int)sizeof(TKV);  // the cache's element
   const int k_row = hd * elt, v_row = hdv * elt;  // bytes of a cache row
   const size_t k_stride = (size_t)K * k_row, v_stride = (size_t)K * v_row;  // a position apart
   // paged: the pool's rows; contiguous: sequence b's
@@ -310,7 +313,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int nkw = min(kWarpKeys, nk - kw0);     // the warp's
     if (nkw > 0) {
       const uint8_t* st = stages + (c % kStages) * lay.stage;
-      const T* kr = reinterpret_cast<const T*>(st + key * lay.kp);
+      const TKV* kr = reinterpret_cast<const TKV*>(st + key * lay.kp);
       const uint8_t* vrows = st + kChunk * lay.kp;
 
       // s = (q * scale) . k: half h sums the 4-dim groups h, h + 2, ... of hd
@@ -353,7 +356,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k_pool,
         pr[r] = dot_in<LOWP>(p);
       }
       for (int kk = 0; kk < nkw; ++kk) {  // O += P V over the warp's keys, in order
-        const T* vr = reinterpret_cast<const T*>(vrows + (kw0 + kk) * lay.vp);
+        const TKV* vr = reinterpret_cast<const TKV*>(vrows + (kw0 + kk) * lay.vp);
         float vv[JV];
 #pragma unroll
         for (int jv = 0; jv < JV; ++jv) {
@@ -474,10 +477,10 @@ int copy_width(const void* base, int row_bytes) {
   return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 2;
 }
 
-template <typename T, int JV, bool LOWP, bool PAGED>
+template <typename TQ, typename TKV, int JV, bool LOWP, bool PAGED>
 cudaError_t launch(const Args& a) {
-  const Layout lay(a.hd, a.hdv, PAGED ? a.bps : 0, (int)sizeof(T));
-  auto kernel = flash_decode_split<T, JV, LOWP, PAGED>;
+  const Layout lay(a.hd, a.hdv, PAGED ? a.bps : 0, (int)sizeof(TKV));
+  auto kernel = flash_decode_split<TQ, TKV, JV, LOWP, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          lay.total);
   if (err != cudaSuccess) return err;
@@ -485,42 +488,51 @@ cudaError_t launch(const Args& a) {
       (long long)a.B * a.K * ((a.G + kRows - 1) / kRows) * a.splits;
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, lay.total, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.table, a.lengths, (T*)a.out, a.ws_ml,
+      (const TQ*)a.q, (const TKV*)a.k, (const TKV*)a.v, a.table, a.lengths, (TQ*)a.out, a.ws_ml,
       a.ws_acc, a.arrivals, a.K, a.G, PAGED ? a.NB : a.Smax, a.bs, a.nT, a.hd, a.hdv, a.scale,
       a.splits, a.bps,
-      copy_width(a.k, a.hd * (int)sizeof(T)), copy_width(a.v, a.hdv * (int)sizeof(T)));
+      copy_width(a.k, a.hd * (int)sizeof(TKV)), copy_width(a.v, a.hdv * (int)sizeof(TKV)));
   return cudaGetLastError();
 }
 
-template <typename T, bool LOWP, bool PAGED>
+template <typename TQ, typename TKV, bool LOWP, bool PAGED>
 cudaError_t launch_jv(const Args& a) {
-  if (a.hdv <= 32) return launch<T, 1, LOWP, PAGED>(a);
-  if (a.hdv <= 64) return launch<T, 2, LOWP, PAGED>(a);
-  return launch<T, 4, LOWP, PAGED>(a);
+  if (a.hdv <= 32) return launch<TQ, TKV, 1, LOWP, PAGED>(a);
+  if (a.hdv <= 64) return launch<TQ, TKV, 2, LOWP, PAGED>(a);
+  return launch<TQ, TKV, 4, LOWP, PAGED>(a);
 }
 
+template <typename TQ, typename TKV, bool PAGED>
+cudaError_t launch_lowp(const Args& a, int lowp) {
+  return lowp ? launch_jv<TQ, TKV, true, PAGED>(a) : launch_jv<TQ, TKV, false, PAGED>(a);
+}
+
+// q_bf16 / kv_bf16: the query (and output) and the cache in bf16, else f32;
+// all four pairs, as the reference casts both to the dots' type in the kernel
 template <bool PAGED>
-int run(const Args& a, int is_bf16, int lowp, int device) {
+int run(const Args& a, int q_bf16, int kv_bf16, int lowp, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int elt = is_bf16 ? 2 : 4;
+  const int elt = kv_bf16 ? 2 : 4;  // the staged rows are the cache's
   if (a.hd % 4 != 0 || a.hdv < 1 || a.hdv > 128 || a.bs < 1 || a.nT < 1 ||
       (PAGED ? a.NB < 1 : a.Smax < 1) || a.splits < 1 || a.bps < 1 ||
       (long long)a.splits * a.bps < a.nT || (long long)(a.splits - 1) * a.bps >= a.nT ||
       (a.splits > 1 && (a.ws_ml == nullptr || a.ws_acc == nullptr || a.arrivals == nullptr)) ||
       Layout(a.hd, a.hdv, PAGED ? a.bps : 0, elt).total > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return (int)(lowp ? launch_jv<__nv_bfloat16, true, PAGED>(a)
-                      : launch_jv<__nv_bfloat16, false, PAGED>(a));
-  return (int)(lowp ? launch_jv<float, true, PAGED>(a) : launch_jv<float, false, PAGED>(a));
+  using bf16 = __nv_bfloat16;
+  if (q_bf16)
+    return (int)(kv_bf16 ? launch_lowp<bf16, bf16, PAGED>(a, lowp)
+                         : launch_lowp<bf16, float, PAGED>(a, lowp));
+  return (int)(kv_bf16 ? launch_lowp<float, bf16, PAGED>(a, lowp)
+                       : launch_lowp<float, float, PAGED>(a, lowp));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of shared memory one split block needs (elt: bytes of an element;
+// Bytes of shared memory one split block needs (elt: bytes of a cache element;
 // n_tbl: the table entries a block holds, 0 for the contiguous cache).
 long long flash_decode_smem_bytes(int hd, int hdv, int n_tbl, int elt) {
   return (long long)Layout(hd, hdv, n_tbl, elt).total;
@@ -534,27 +546,28 @@ int flash_decode_max_smem_bytes() { return kMaxSmem; }
 // contiguous cache) cover a row (splits * bps >= the row's entries); with
 // splits > 1, ws_ml and ws_acc hold (B*K, splits, G, 2) and
 // (B*K, splits, G, hdv) floats, and arrivals B*K*ceil(G/4) ints that are
-// zero (each call leaves them so).
+// zero (each call leaves them so). q_bf16: q and out in bf16, kv_bf16: the
+// cache in bf16 (f32 otherwise, each independently).
 int flash_decode(const void* q, const void* k, const void* v, const void* lengths, void* out,
                  void* ws_ml, void* ws_acc, void* arrivals, int B, int K, int G, int Smax,
-                 int hd, int hdv, float scale, int splits, int bps, int is_bf16, int lowp,
-                 int device, void* stream) {
+                 int hd, int hdv, float scale, int splits, int bps, int q_bf16, int kv_bf16,
+                 int lowp, int device, void* stream) {
   const Args a{q, k, v, nullptr, (const int*)lengths, out, (float*)ws_ml, (float*)ws_acc,
                (int*)arrivals, B, K, G, 0, Smax, kChunk,
                Smax < 1 ? 0 : (Smax + kChunk - 1) / kChunk, hd, hdv, scale, splits, bps,
                (cudaStream_t)stream};
-  return run<false>(a, is_bf16, lowp, device);
+  return run<false>(a, q_bf16, kv_bf16, lowp, device);
 }
 
 int flash_decode_paged(const void* q, const void* k_pool, const void* v_pool,
                        const void* table, const void* lengths, void* out, void* ws_ml,
                        void* ws_acc, void* arrivals, int B, int K, int G, int NB, int bs, int nT, int hd,
-                       int hdv, float scale, int splits, int bps, int is_bf16, int lowp,
-                       int device, void* stream) {
+                       int hdv, float scale, int splits, int bps, int q_bf16, int kv_bf16,
+                       int lowp, int device, void* stream) {
   const Args a{q, k_pool, v_pool, (const int*)table, (const int*)lengths, out,
                (float*)ws_ml, (float*)ws_acc, (int*)arrivals, B, K, G, NB, 0, bs, nT, hd, hdv,
                scale, splits, bps, (cudaStream_t)stream};
-  return run<true>(a, is_bf16, lowp, device);
+  return run<true>(a, q_bf16, kv_bf16, lowp, device);
 }
 
 const char* kernel_error_string(int code) {

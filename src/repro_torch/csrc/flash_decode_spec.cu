@@ -69,8 +69,10 @@
 //    80.5 KB, two blocks an SM.
 //
 // Layout: q (B,K,S,G,hd), k (B,Smax,K,hd) or (NB,bs,K,hd), v likewise with
-// hdv, out (B,K,S,G,hdv), all contiguous, f32 or bf16, hd a multiple of 4,
-// hdv <= 128; lengths (B,) int32; table (B,T) int32; the workspace ws
+// hdv, out (B,K,S,G,hdv), all contiguous, hd a multiple of 4, hdv <= 128;
+// q and out f32 or bf16 (TQ), the cache f32 or bf16 (TKV) independently,
+// staged in its own type and upcast in registers as the reference casts
+// them inside its kernel; lengths (B,) int32; table (B,T) int32; the workspace ws
 // (B*K*row blocks, splits, 24, 2 + hdv) f32 and arrivals B*K*row blocks
 // int32. The kernels allocate nothing and launch on the caller's stream.
 // This file is self-contained (no shared header), so the build's hash of it
@@ -228,16 +230,16 @@ __host__ __device__ inline int chunk_positions(int bs) {
 // slice * 16 .. + 15 of every chunk for the row groups part, part + kParts,
 // ... (4 rows a group) of the block. JV = value dims a lane holds in 32s (hdv <= 32 JV);
 // kcw and vcw are the copy widths in bytes of K and V rows.
-template <typename T, int JV, bool LOWP, bool PAGED>
+template <typename TQ, typename TKV, int JV, bool LOWP, bool PAGED>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_decode_spec_split(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ table,
-                        const int* __restrict__ lengths, T* __restrict__ out,
+flash_decode_spec_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                        const TKV* __restrict__ v, const int* __restrict__ table,
+                        const int* __restrict__ lengths, TQ* __restrict__ out,
                         float* __restrict__ ws, int* __restrict__ arrivals, int K, int S, int G,
                         int Smax, int NB, int bs, int nT, int hd, int hdv, float scale,
                         int splits, int bps, int kcw, int vcw) {
   constexpr int RW = kWarpRows;
-  const Layout lay(hd, hdv, (int)sizeof(T));
+  const Layout lay(hd, hdv, (int)sizeof(TKV));
   extern __shared__ float4 smem4[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
   float* qs = reinterpret_cast<float*>(sm);               // [kRows][hd]
@@ -276,7 +278,7 @@ flash_decode_spec_split(const T* __restrict__ q, const T* __restrict__ k,
 
   const int ch = chunk_positions(bsz);
   const int n_chunks = (p1 - p0 + ch - 1) / ch;
-  const int elt = (int)sizeof(T);
+  const int elt = (int)sizeof(TKV);  // the cache's element
   const int k_row = hd * elt, v_row = hdv * elt;  // bytes of a cache row
   const size_t k_stride = (size_t)K * k_row, v_stride = (size_t)K * v_row;  // a position apart
   // contiguous: sequence b's rows; paged: the pool's
@@ -334,7 +336,7 @@ flash_decode_spec_split(const T* __restrict__ q, const T* __restrict__ k,
     const int nkw = min(kWarpKeys, nk - kw0);  // the warp's
     if (nkw > 0 && wn > 0) {
       const uint8_t* st = stages + (c % kStages) * lay.stage;
-      const T* kr = reinterpret_cast<const T*>(st + key * lay.kp);
+      const TKV* kr = reinterpret_cast<const TKV*>(st + key * lay.kp);
       const uint8_t* vrows = st + kChunk * lay.kp;
       const bool valid = (lane & 15) < nkw;
       const bool causal = c0 + nk > lo;  // some row's limit falls inside the chunk
@@ -409,7 +411,7 @@ flash_decode_spec_split(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncwarp();
       for (int kk = 0; kk < nkw; ++kk) {  // O += P V over the warp's keys, in order
-        const T* vr = reinterpret_cast<const T*>(vrows + (kw0 + kk) * lay.vp);
+        const TKV* vr = reinterpret_cast<const TKV*>(vrows + (kw0 + kk) * lay.vp);
         float vv[JV];
 #pragma unroll
         for (int jv = 0; jv < JV; ++jv) {
@@ -592,10 +594,10 @@ int copy_width(const void* base, int row_bytes) {
   return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 2;
 }
 
-template <typename T, int JV, bool LOWP, bool PAGED>
+template <typename TQ, typename TKV, int JV, bool LOWP, bool PAGED>
 cudaError_t launch(const Args& a) {
-  const Layout lay(a.hd, a.hdv, (int)sizeof(T));
-  auto kernel = flash_decode_spec_split<T, JV, LOWP, PAGED>;
+  const Layout lay(a.hd, a.hdv, (int)sizeof(TKV));
+  auto kernel = flash_decode_spec_split<TQ, TKV, JV, LOWP, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          lay.total);
   if (err != cudaSuccess) return err;
@@ -603,29 +605,36 @@ cudaError_t launch(const Args& a) {
       (long long)a.B * a.K * ((a.S * a.G + kRows - 1) / kRows) * a.splits;
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, lay.total, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.table, a.lengths, (T*)a.out, a.ws,
+      (const TQ*)a.q, (const TKV*)a.k, (const TKV*)a.v, a.table, a.lengths, (TQ*)a.out, a.ws,
       a.arrivals, a.K, a.S, a.G, a.Smax, a.NB, a.bs, a.nT, a.hd, a.hdv, a.scale, a.splits,
-      a.bps, copy_width(a.k, a.hd * (int)sizeof(T)), copy_width(a.v, a.hdv * (int)sizeof(T)));
+      a.bps, copy_width(a.k, a.hd * (int)sizeof(TKV)), copy_width(a.v, a.hdv * (int)sizeof(TKV)));
   return cudaGetLastError();
 }
 
-template <typename T, bool LOWP, bool PAGED>
+template <typename TQ, typename TKV, bool LOWP, bool PAGED>
 cudaError_t launch_jv(const Args& a) {
   switch (value_regs(a.hdv)) {
-    case 1: return launch<T, 1, LOWP, PAGED>(a);
-    case 2: return launch<T, 2, LOWP, PAGED>(a);
-    default: return launch<T, 4, LOWP, PAGED>(a);
+    case 1: return launch<TQ, TKV, 1, LOWP, PAGED>(a);
+    case 2: return launch<TQ, TKV, 2, LOWP, PAGED>(a);
+    default: return launch<TQ, TKV, 4, LOWP, PAGED>(a);
   }
 }
 
+template <typename TQ, typename TKV, bool PAGED>
+cudaError_t launch_lowp(const Args& a, int lowp) {
+  return lowp ? launch_jv<TQ, TKV, true, PAGED>(a) : launch_jv<TQ, TKV, false, PAGED>(a);
+}
+
+// q_bf16 / kv_bf16: the query (and output) and the cache in bf16, else f32;
+// all four pairs, as the reference casts both to the dots' type in the kernel
 template <bool PAGED>
-int run(const Args& a, int rb, int is_bf16, int lowp, int device) {
+int run(const Args& a, int rb, int q_bf16, int kv_bf16, int lowp, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   // table entries a split's range is cut from: pool blocks, or 64-position
   // blocks of the contiguous cache
   const long long n_tbl = PAGED ? a.nT : (a.Smax + (long long)kChunk - 1) / kChunk;
-  const int elt = is_bf16 ? 2 : 4;
+  const int elt = kv_bf16 ? 2 : 4;  // the staged rows are the cache's
   if (a.hd % 4 != 0 || a.hd < 4 || a.hdv < 1 || a.hdv > 128 || a.S < 1 || a.G < 1 ||
       a.K < 1 || rb != kRows || (long long)a.S * a.G > 0x3fffffff ||
       (PAGED ? (a.bs < 1 || a.nT < 1 || a.NB < 1) : a.Smax < 1) || a.splits < 1 ||
@@ -634,17 +643,19 @@ int run(const Args& a, int rb, int is_bf16, int lowp, int device) {
       (a.splits > 1 && (a.ws == nullptr || a.arrivals == nullptr)) ||
       Layout(a.hd, a.hdv, elt).total + (int)sizeof(int) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return (int)(lowp ? launch_jv<__nv_bfloat16, true, PAGED>(a)
-                      : launch_jv<__nv_bfloat16, false, PAGED>(a));
-  return (int)(lowp ? launch_jv<float, true, PAGED>(a) : launch_jv<float, false, PAGED>(a));
+  using bf16 = __nv_bfloat16;
+  if (q_bf16)
+    return (int)(kv_bf16 ? launch_lowp<bf16, bf16, PAGED>(a, lowp)
+                         : launch_lowp<bf16, float, PAGED>(a, lowp));
+  return (int)(kv_bf16 ? launch_lowp<float, bf16, PAGED>(a, lowp)
+                       : launch_lowp<float, float, PAGED>(a, lowp));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of shared memory one split block needs (elt: bytes of an element).
+// Bytes of shared memory one split block needs (elt: bytes of a cache element).
 long long flash_decode_spec_smem_bytes(int hd, int hdv, int elt) {
   return (long long)Layout(hd, hdv, elt).total + (long long)sizeof(int);
 }
@@ -656,26 +667,29 @@ int flash_decode_spec_max_smem_bytes() { return kMaxSmem; }
 // block of rb rows is cut into splits blocks of bps table entries (pool
 // blocks, or 64-position blocks of the contiguous cache); with splits > 1,
 // ws holds (B*K*row blocks, splits, rb, 2 + hdv) floats and arrivals
-// B*K*row blocks ints that are zero (each call leaves them so).
+// B*K*row blocks ints that are zero (each call leaves them so). q_bf16: q
+// and out in bf16, kv_bf16: the cache in bf16 (f32 otherwise, each
+// independently).
 int flash_decode_spec(const void* q, const void* k, const void* v, const void* lengths,
                       void* out, void* ws, void* arrivals, int B, int K, int S, int G,
                       int Smax, int hd, int hdv, float scale, int rb, int splits, int bps,
-                      int is_bf16, int lowp, int device, void* stream) {
+                      int q_bf16, int kv_bf16, int lowp, int device, void* stream) {
   const Args a{q, k, v, nullptr, (const int*)lengths, out, (float*)ws, (int*)arrivals,
                B, K, S, G, Smax, 0, 0, 0, hd, hdv, scale, splits, bps,
                (cudaStream_t)stream};
-  return run<false>(a, rb, is_bf16, lowp, device);
+  return run<false>(a, rb, q_bf16, kv_bf16, lowp, device);
 }
 
 int flash_decode_spec_paged(const void* q, const void* k_pool, const void* v_pool,
                             const void* table, const void* lengths, void* out, void* ws,
                             void* arrivals, int B, int K, int S, int G, int NB, int bs,
                             int nT, int hd, int hdv, float scale, int rb, int splits,
-                            int bps, int is_bf16, int lowp, int device, void* stream) {
+                            int bps, int q_bf16, int kv_bf16, int lowp, int device,
+                            void* stream) {
   const Args a{q, k_pool, v_pool, (const int*)table, (const int*)lengths, out, (float*)ws,
                (int*)arrivals, B, K, S, G, 0, NB, bs, nT, hd, hdv, scale, splits, bps,
                (cudaStream_t)stream};
-  return run<true>(a, rb, is_bf16, lowp, device);
+  return run<true>(a, rb, q_bf16, kv_bf16, lowp, device);
 }
 
 const char* kernel_error_string(int code) {

@@ -160,10 +160,15 @@ class TrainSession(SocJob):
             return self.ckpt
         if self._migrate_ckpt is None:
             # TemporaryDirectory cleans itself up when the session is
-            # collected, so pause round-trips don't leak checkpoints
+            # collected, so pause round-trips don't leak checkpoints. Stored,
+            # not compressed (the same format at level 0): the file only
+            # releases memory until the resume reads it back, and zlib's
+            # ~15 MB/s would make a pause of a full-width state (15 GB, or
+            # 3 GB at two layers) take minutes
             self._migrate_tmpdir = tempfile.TemporaryDirectory(
                 prefix="swan_migrate_")
-            self._migrate_ckpt = CheckpointManager(self._migrate_tmpdir.name)
+            self._migrate_ckpt = CheckpointManager(self._migrate_tmpdir.name,
+                                                   level=0)
         return self._migrate_ckpt
 
     def _apply_migration(self, step: int, state, from_rung: Rung,

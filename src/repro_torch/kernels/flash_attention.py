@@ -21,6 +21,11 @@ caller can show that a run really went through the kernels; the backward
 kernels count in ``flash_backward.launches``, and ``all_launches`` merges the
 two. Plain-version calls on the CPU do not count.
 
+The decode wrappers take the cache in a dtype of its own (f32 or bf16, q
+likewise): each of the four pairs is an instantiation of its kernel, which
+stages the cache in its own type and computes in f32 (bf16 dot inputs under
+``lowp``); the output is in q's dtype.
+
 On the card the dtype and ``lowp`` choose ``flash_fwd``'s numeric mode, as
 the reference's ``cdt`` does: bf16 inputs run the tensor-core kernel (TMA,
 ``wgmma``), with ``lowp`` on bf16(q * scale) and bf16 p, without it with p
@@ -60,6 +65,13 @@ from repro_torch.kernels.ref import (ref_flash_attention_fwd, ref_flash_decode,
 
 launches = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0,
             "flash_decode_spec": 0, "flash_decode_spec_paged": 0}
+# the decode kernels' launches whose query and cache dtypes differ, by
+# "<kernel>:<q dtype>:<cache dtype>" (counted beside ``launches``): a bf16
+# cache under f32 queries is the bottom serving rung's
+DECODE_KERNELS = ("flash_decode", "flash_decode_paged", "flash_decode_spec",
+                  "flash_decode_spec_paged")
+mixed_launches = {f"{k}:{q}:{kv}": 0 for k in DECODE_KERNELS
+                  for q, kv in (("float32", "bfloat16"), ("bfloat16", "float32"))}
 
 FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims flash_{fwd,bwd}.cu are instantiated for
 FWD_ROWS = 64      # query rows of a flash_fwd block, and keys of its tiles
@@ -73,9 +85,10 @@ _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    """Zero the launch counts of every flash kernel, the backward's too."""
+    """Zero the launch counts of every flash kernel, the backward's and the
+    mixed-dtype decode counts too."""
     from repro_torch.kernels import flash_backward
-    for counts in (launches, flash_backward.launches):
+    for counts in (launches, mixed_launches, flash_backward.launches):
         for name in counts:
             counts[name] = 0
 
@@ -101,10 +114,10 @@ def _decode_lib():
     """Both decode kernels' library: the contiguous and the paged entry."""
     lib = load_library("flash_decode_paged")
     lib.flash_decode.argtypes = [_P] * 8 + [_I] * 6 + \
-        [ctypes.c_float] + [_I] * 5 + [_P]
+        [ctypes.c_float] + [_I] * 6 + [_P]
     lib.flash_decode.restype = _I
     lib.flash_decode_paged.argtypes = [_P] * 9 + [_I] * 8 + \
-        [ctypes.c_float] + [_I] * 5 + [_P]
+        [ctypes.c_float] + [_I] * 6 + [_P]
     lib.flash_decode_paged.restype = _I
     lib.flash_decode_smem_bytes.argtypes = [_I] * 4
     lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
@@ -117,10 +130,10 @@ def _decode_lib():
 def _spec_lib():
     lib = load_library("flash_decode_spec")
     lib.flash_decode_spec.argtypes = [_P] * 7 + [_I] * 7 + \
-        [ctypes.c_float] + [_I] * 6 + [_P]
+        [ctypes.c_float] + [_I] * 7 + [_P]
     lib.flash_decode_spec.restype = _I
     lib.flash_decode_spec_paged.argtypes = [_P] * 8 + [_I] * 9 + \
-        [ctypes.c_float] + [_I] * 6 + [_P]
+        [ctypes.c_float] + [_I] * 7 + [_P]
     lib.flash_decode_spec_paged.restype = _I
     lib.flash_decode_spec_smem_bytes.argtypes = [_I] * 3
     lib.flash_decode_spec_smem_bytes.restype = ctypes.c_longlong
@@ -365,9 +378,19 @@ def _table(block_table, B: int, device) -> torch.Tensor:
     return table.to(torch.int32).contiguous()
 
 
+def _check_decode_dtype(q, k, v) -> None:
+    """The decode kernels take q and the cache each in f32 or bf16, as the
+    reference casts both to the dots' type inside its kernels; k and v share
+    one dtype."""
+    if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"flash decode kernels take an f32 or bf16 q and an "
+                        f"f32 or bf16 cache whose k and v share one dtype, got "
+                        f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
+
+
 def _check_decode_inputs(what: str, q, k, v) -> None:
     _check_no_grad(what, q, k, v)
-    _check_dtype(q, k, v)
+    _check_decode_dtype(q, k, v)
     check_device(q, k, v)
 
 
@@ -409,7 +432,7 @@ def _decode_launch(what: str, q, k, v, table, lengths, scale: float,
         splits, bps = decode_plan(k.shape[1], rows, sm_count(device))
         extra = ""
     _check_kernel_geometry(
-        what, lib.flash_decode_smem_bytes(hd, hdv, bps if paged else 0, q.element_size()),
+        what, lib.flash_decode_smem_bytes(hd, hdv, bps if paged else 0, k.element_size()),
         lib.flash_decode_max_smem_bytes(), hd, hdv, k, extra)
     # the splits' f32 partials (m and l, then acc), written before they are
     # read: no fill
@@ -425,10 +448,16 @@ def _decode_launch(what: str, q, k, v, table, lengths, scale: float,
     dims = [B, K, G] + ([k.shape[0], bs, T] if paged else [k.shape[1]]) + [hd, hdv]
     fn = lib.flash_decode_paged if paged else lib.flash_decode
     rc = fn(*ptrs, *dims, float(scale), splits, bps, int(q.dtype == torch.bfloat16),
-            int(lowp), device, stream)
+            int(k.dtype == torch.bfloat16), int(lowp), device, stream)
     check_launch(lib, rc, what)
-    launches[what] += 1
+    _count_decode(what, q, k)
     return out
+
+
+def _count_decode(what: str, q, k) -> None:
+    launches[what] += 1
+    if q.dtype != k.dtype:
+        mixed_launches[f"{what}:{str(q.dtype)[6:]}:{str(k.dtype)[6:]}"] += 1
 
 
 def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
@@ -437,7 +466,10 @@ def flash_decode(q, k, v, lengths, *, scale: Optional[float] = None,
 
     q: (B, K, G, hd) — one new token's query heads, grouped so the G heads
        sharing KV head k sit together.
-    k: (B, Smax, K, hd)   v: (B, Smax, K, hdv) — the KV cache buffers.
+    k: (B, Smax, K, hd)   v: (B, Smax, K, hdv) — the KV cache buffers, f32
+       or bf16 whatever q's dtype is (a bf16 cache under f32 queries is a
+       serving rung's: the kernel reads it in bf16 and computes in f32, as
+       the reference's kernel casts it).
     lengths: (B,) int or a scalar — row b attends cache positions
        < min(lengths[b], Smax); rows with length 0 return zeros.
 
@@ -524,7 +556,7 @@ def _spec_launch(what: str, q, k, v, table, lengths, scale: float,
         T, bs = -(-k.shape[1] // DECODE_CHUNK), DECODE_CHUNK
     n_rb, splits, bps = spec_plan(B, K, R, T, bs, sm_count(device))
     _check_kernel_geometry(
-        what, lib.flash_decode_spec_smem_bytes(hd, hdv, q.element_size()),
+        what, lib.flash_decode_spec_smem_bytes(hd, hdv, k.element_size()),
         lib.flash_decode_spec_max_smem_bytes(), hd, hdv, k)
     ws = arrivals = None
     if splits > 1:  # each split's f32 partial, written before it is read: no fill
@@ -538,9 +570,10 @@ def _spec_launch(what: str, q, k, v, table, lengths, scale: float,
     dims = [B, K, S, G] + ([k.shape[0], bs, T] if paged else [k.shape[1]]) + [hd, hdv]
     fn = lib.flash_decode_spec_paged if paged else lib.flash_decode_spec
     rc = fn(*ptrs, *dims, float(scale), rb, splits, bps,
-            int(q.dtype == torch.bfloat16), int(lowp), device, stream)
+            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+            int(lowp), device, stream)
     check_launch(lib, rc, what)
-    launches[what] += 1
+    _count_decode(what, q, k)
     return out
 
 

@@ -55,10 +55,18 @@ kernel (contig) and decode attention through the flash-decode kernels
 prefill attention is plain torch, as in the reference. ``auto`` consults
 ``kernels/backend.auto_decode_impl``.
 
-Not ported: sampling (``temperature > 0``), queued-request deadlines,
-``drain``, ``hold_blocks``, the ``set_slot_cap`` / ``set_kv_dtype`` /
-``set_attn_impl`` rung knobs, telemetry spans and the lockstep loop; each
-raises where it is asked for.
+Graceful degradation and the serving rungs (``engine.jobs.ServeJob``
+migrates these live): a queued request past its ``deadline_steps`` is
+rejected with ``"timeout"``; ``drain()`` refuses new work (``"draining"``)
+and lets residents finish; ``hold_blocks()`` lets a co-tenant take pool
+blocks residents have not reserved; ``set_slot_cap``, ``set_kv_dtype``,
+``set_attn_impl`` and ``set_draft_depth`` are the rung knobs. A bf16 cache
+under f32 weights (``set_kv_dtype("bfloat16")``, the bottom serving rung)
+runs the decode kernels' mixed-dtype instantiations: f32 queries over a
+bf16 cache, computed in f32.
+
+Not ported: sampling (``temperature > 0``), telemetry spans and the
+lockstep loop; each raises where it is asked for.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -85,7 +93,7 @@ from repro_torch.launch.steps import (build_decode_step,
                                       build_paged_spec_decode_step,
                                       build_prefill_step,
                                       build_spec_decode_step)
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, rebuild_model
 from repro_torch.paging import BlockPoolExhausted, PagedKVCache
 from repro_torch.spec.verify import greedy_verify
 
@@ -95,7 +103,9 @@ class Request:
     uid: int
     prompt: np.ndarray  # (P,) int32 prompt tokens
     max_new_tokens: int
-    # admission deadlines are not ported: a request must leave this None
+    # graceful degradation: a queued request that has not been admitted
+    # within deadline_steps engine steps of submission is dropped with a
+    # "timeout" rejection instead of waiting forever (None = patient)
     deadline_steps: Optional[int] = None
     submitted_at: int = -1  # engine decode_steps at submit(); set by submit
 
@@ -111,10 +121,11 @@ class Finished:
 @dataclasses.dataclass
 class Rejected:
     """A request the engine declined instead of serving: load shedding under
-    pool pressure or a full queue. ``retry_after`` is the engine's estimate
-    (in decode steps) of when resubmission could succeed."""
+    pool pressure, a queued-deadline timeout, or a drain. ``retry_after`` is
+    the engine's estimate (in decode steps) of when resubmission could
+    succeed — the serving analogue of an HTTP 503 Retry-After."""
     uid: int
-    reason: str  # "shed"
+    reason: str  # "shed" | "timeout" | "draining"
     retry_after: int
 
 
@@ -173,6 +184,17 @@ class ContinuousBatchingEngine:
         self.kv_layout = kv_layout
         self.block_size = block_size
         self.bucket_prompts = bucket_prompts
+        self.jit = bool(jit)
+        # serving-rung knobs (engine.jobs.ServeJob migrates these live); the
+        # as-built settings are what a None override restores
+        self.slot_cap: Optional[int] = None
+        self._base_model = model
+        self._base_cache_dtype = cache_dtype
+        self._attn_impl_override: Optional[str] = None
+        # whether the last step() ran a compiled decode or verify step that
+        # did not replay (its eager first call, or its capture): a job
+        # timing steps leaves those out of its estimates
+        self.last_step_compiled = False
 
         self.cache_len = np.zeros(max_batch, np.int32)
         self.tokens = np.zeros((max_batch, 1), np.int32)
@@ -189,8 +211,12 @@ class ContinuousBatchingEngine:
         if max_queue is None and admission_policy == "shed":
             max_queue = 2 * max_batch
         self.max_queue = max_queue
+        self.accepting = True  # drain() flips this; submit() then rejects
         self.rejected: Dict[int, Rejected] = {}
         self.shed_count = 0
+        self.timeout_count = 0
+        self._held_blocks = 0  # pool blocks held by an external co-tenant
+        self._hold_seq = 0
         self.decode_steps = 0
         self.tokens_out = 0
         self._active_slot_steps = 0
@@ -225,9 +251,6 @@ class ContinuousBatchingEngine:
         # device buffers of the steps' per-step inputs, by name and shape
         # (_dev): fixed addresses, filled by copy_ through pinned staging
         self._bufs: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
-        # the decode and verify steps are compiled (CUDA graphs on the card,
-        # launch/steps.CompiledStep); prefill and prefill chunks stay eager
-        self._prefill = build_prefill_step(model)
         if kv_layout == "paged":
             # virtual capacity per sequence: T blocks; the default provisions
             # the contiguous equivalent, plus the null block
@@ -241,11 +264,6 @@ class ContinuousBatchingEngine:
             self._reserved: Dict[int, int] = {}
             self.cache = model.init_paged_cache(num_blocks, block_size,
                                                 cache_dtype)
-            self._decode = build_paged_decode_step(model, jit=jit)
-            self._prefill_chunk = build_paged_prefill_step(model)
-            self._prefill_chunk_ro = build_paged_prefill_step(model,
-                                                              write=False)
-            self._spec_decode = build_paged_spec_decode_step(model, jit=jit)
             # device-resident dense block table, updated row-wise from the
             # host table's dirty set instead of re-uploaded every step (a
             # copy: the host table keeps changing under it); always written
@@ -255,16 +273,34 @@ class ContinuousBatchingEngine:
         else:
             self.kv = None
             self.cache = model.init_cache(max_batch, max_seq, cache_dtype)
-            self._decode = build_decode_step(model, jit=jit)
-            self._spec_decode = build_spec_decode_step(model, jit=jit)
+        # the cache's storage of each dtype set_kv_dtype has met
+        self._kv_store: Dict[torch.dtype, Dict[str, torch.Tensor]] = {
+            cache_dtype: self.cache}
+        self._build_steps(model)
+
+    def _build_steps(self, model) -> None:
+        """(Re)build the steps for ``model`` under the active layout. The
+        decode and verify steps are compiled (CUDA graphs on the card,
+        launch/steps.CompiledStep); prefill and prefill chunks stay eager.
+        Steps built before are dropped, and their graphs with them."""
+        self._prefill = build_prefill_step(model)
+        if self.kv is not None:
+            self._decode = build_paged_decode_step(model, jit=self.jit)
+            self._prefill_chunk = build_paged_prefill_step(model)
+            self._prefill_chunk_ro = build_paged_prefill_step(model,
+                                                              write=False)
+            self._spec_decode = build_paged_spec_decode_step(model,
+                                                             jit=self.jit)
+        else:
+            self._decode = build_decode_step(model, jit=self.jit)
+            self._spec_decode = build_spec_decode_step(model, jit=self.jit)
 
     # -- request lifecycle -------------------------------------------------
 
     def submit(self, req: Request) -> bool:
         """Queue a request; returns False (with a ``Rejected`` record) when
-        ``shed`` finds the queue full. Malformed requests raise."""
-        if req.deadline_steps is not None:
-            _not_ported("admission deadlines (Request.deadline_steps)")
+        the engine is draining or ``shed`` finds the queue full. Malformed
+        requests raise."""
         if len(req.prompt) >= self.max_seq:
             raise ValueError(f"prompt {req.uid} ({len(req.prompt)} tokens) "
                              f"does not fit max_seq={self.max_seq}")
@@ -274,6 +310,9 @@ class ContinuousBatchingEngine:
                 f"request {req.uid} ({len(req.prompt)} prompt + "
                 f"{req.max_new_tokens} budget) can never be resident: pool "
                 f"has {self.kv.pool.num_usable} blocks of {self.block_size}")
+        if not self.accepting:
+            self._reject(req, "draining")
+            return False
         if self.admission_policy == "shed" and self.max_queue is not None \
                 and len(self.queue) >= self.max_queue:
             self._reject(req, "shed")
@@ -281,6 +320,15 @@ class ContinuousBatchingEngine:
         req.submitted_at = self.decode_steps
         self.queue.append(req)
         return True
+
+    def drain(self) -> None:
+        """Stop admitting: refuse new submissions, shed the waiting queue,
+        let residents stream to completion. Idempotent."""
+        if not self.accepting:
+            return
+        self.accepting = False
+        while self.queue:
+            self._reject(self.queue.popleft(), "draining")
 
     def _retry_after(self) -> int:
         """Steps until an admission could plausibly succeed: the shortest
@@ -293,7 +341,61 @@ class ContinuousBatchingEngine:
     def _reject(self, req: Request, reason: str) -> None:
         self.rejected[req.uid] = Rejected(
             uid=req.uid, reason=reason, retry_after=self._retry_after())
-        self.shed_count += 1
+        if reason == "shed":
+            self.shed_count += 1
+        elif reason == "timeout":
+            self.timeout_count += 1
+
+    def _expire_deadlines(self) -> None:
+        """Drop queued requests whose admission deadline has passed. Only
+        *waiting* requests time out — a request already resident owns its
+        resources and streams to completion."""
+        if not any(r.deadline_steps is not None for r in self.queue):
+            return
+        keep: List[Request] = []
+        for req in self.queue:
+            waited = self.decode_steps - req.submitted_at
+            if req.deadline_steps is not None and \
+                    waited > req.deadline_steps:
+                self._reject(req, "timeout")
+            else:
+                keep.append(req)
+        self.queue = collections.deque(keep)
+
+    # -- external memory pressure (chaos / co-tenant apps) ------------------
+
+    def hold_blocks(self, n: int) -> int:
+        """Let a co-tenant (the chaos injector) take up to ``n`` KV blocks
+        out of the pool. Holds only what residents have not reserved, so a
+        live sequence can never be starved mid-decode. Under the swap policy,
+        cold residents are evicted to host memory first so the co-tenant gets
+        its blocks without starving admission afterwards. Returns the count
+        actually held. No-op (0) under the contig layout."""
+        if self.kv is None:
+            return 0
+        self.release_held()
+        if self.admission_policy == "swap":
+            # make room for the co-tenant by parking cold residents on host
+            while self.kv.pool.num_usable - sum(self._reserved.values()) \
+                    < int(n):
+                victim = self._swap_victim()
+                if victim is None:
+                    break
+                self._swap_out(victim)
+        avail = self.kv.pool.num_usable - sum(self._reserved.values())
+        take = max(0, min(int(n), avail, self.kv.pool.num_free))
+        if take:
+            self._hold_seq += 1
+            self.kv.pool.allocate(("__hold__", self._hold_seq),
+                                  take * self.block_size)
+            self._held_blocks = take
+        return take
+
+    def release_held(self) -> None:
+        """Return externally-held blocks to the pool (pressure clears)."""
+        if self._held_blocks:
+            self.kv.pool.free(("__hold__", self._hold_seq))
+            self._held_blocks = 0
 
     # -- host-memory swap tier (admission_policy="swap") ---------------------
 
@@ -351,12 +453,16 @@ class ContinuousBatchingEngine:
         """Restore parked sequences (FIFO) into free slots while their
         worst-case reservation fits. Runs before admission each step."""
         for uid in sorted(self.swapped, key=lambda u: self.swapped[u].swapped_at):
+            if self.slot_cap is not None and \
+                    sum(1 for u in self.slot_uid if u is not None) >= \
+                    self.slot_cap:
+                return
             free = [s for s in range(self.max_batch)
                     if self.slot_uid[s] is None]
             if not free:
                 return
             sw = self.swapped[uid]
-            fits = (sum(self._reserved.values()) + sw.worst
+            fits = (self._held_blocks + sum(self._reserved.values()) + sw.worst
                     <= self.kv.pool.num_usable) and \
                 self.kv.pool.can_allocate(sw.n_blocks * self.block_size)
             if not fits:
@@ -367,7 +473,8 @@ class ContinuousBatchingEngine:
     def _make_room(self, worst: int) -> bool:
         """Swap out LRU residents until a ``worst``-block reservation fits;
         False when no eligible victim remains."""
-        while sum(self._reserved.values()) + worst > self.kv.pool.num_usable:
+        while self._held_blocks + sum(self._reserved.values()) + worst \
+                > self.kv.pool.num_usable:
             victim = self._swap_victim()
             if victim is None:
                 return False
@@ -507,36 +614,88 @@ class ContinuousBatchingEngine:
                 if self.slot_uid[slot] is not None:
                     self.draft.admit(slot, self.generated[slot])
 
-    def drain(self) -> None:
-        _not_ported("drain")
-
-    def hold_blocks(self, n: int) -> int:
-        _not_ported("hold_blocks")
-
     def set_slot_cap(self, cap: Optional[int]) -> None:
-        _not_ported("set_slot_cap")
+        """Cap concurrently-resident requests (decode microbatch cap).
+
+        Takes effect at admission: resident sequences above a lowered cap
+        keep streaming and the population shrinks as they retire — no
+        request is ever evicted mid-decode. ``None`` removes the cap."""
+        self.slot_cap = None if cap is None else max(1, int(cap))
 
     def set_kv_dtype(self, dtype=None) -> None:
-        _not_ported("set_kv_dtype")
+        """Cast the live KV cache (``None`` restores the as-built dtype).
+
+        Halving cache bytes (bf16) halves the bandwidth every decode step
+        streams — the serving analogue of a bf16 training rung; the decode
+        kernels read a bf16 cache under f32 queries and compute in f32.
+        Lossy on the way down: re-upcasting does not recover the rounded
+        bits.
+
+        The values are copied into the cache's storage for that dtype, made
+        the first time the dtype is met and kept: the compiled decode and
+        verify steps' graphs address their cache, so a ladder that walks
+        back replays them instead of capturing again (as the reference's
+        jit keeps one executable per dtype). The storage of the dtype left
+        keeps stale values, which the next copy into it overwrites whole."""
+        if isinstance(dtype, str):
+            dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                     "float16": torch.float16}[dtype]
+        dtype = self._base_cache_dtype if dtype is None else dtype
+        if all(a.dtype == dtype for a in self.cache.values()):
+            return
+        store = self._kv_store.get(dtype)
+        if store is None:
+            with torch.inference_mode(False):  # the splices write it in place
+                store = {name: torch.empty_like(a, dtype=dtype)
+                         for name, a in self.cache.items()}
+            self._kv_store[dtype] = store
+        for name, a in self.cache.items():
+            store[name].copy_(a)
+        self.cache = store
 
     def set_attn_impl(self, impl: Optional[str]) -> None:
-        _not_ported("set_attn_impl")
+        """Rebuild the decode, verify and prefill steps under a different
+        attention impl (``None`` restores the as-built model). Params, cache
+        and all slot bookkeeping carry over — only the steps change; the
+        old compiled steps are dropped with their graphs."""
+        if impl == self._attn_impl_override:
+            return
+        self._attn_impl_override = impl
+        if impl is None:
+            model = self._base_model
+        else:
+            # rebuild from the as-built model's own kwargs so only the
+            # attention impl changes (chunk, remat, dtype, device carry over)
+            model = rebuild_model(self._base_model, impl=impl)
+        if model is self.model:
+            return
+        self.model = model
+        self._build_steps(model)
+
+    def compiled_steps(self) -> List:
+        """The engine's compiled steps (those with capture counts)."""
+        return [f for f in (self._decode, self._spec_decode)
+                if hasattr(f, "captures")]
 
     # -- stepping ----------------------------------------------------------
 
     def _pool_pressure(self, req: Request) -> bool:
         """True when admitting ``req`` could starve a resident later: its
-        worst case plus every resident's reservation would overrun the
-        pool."""
+        worst case plus every resident's reservation plus externally held
+        blocks would overrun the pool."""
         if self.kv is None:
             return False
-        return sum(self._reserved.values()) + self._worst_blocks(req) > \
-            self.kv.pool.num_usable
+        return self._held_blocks + sum(self._reserved.values()) + \
+            self._worst_blocks(req) > self.kv.pool.num_usable
 
     def _admit_waiting(self) -> None:
         for slot in range(self.max_batch):
             while True:
-                if not self.queue:
+                if not self.queue or not self.accepting:
+                    return
+                if self.slot_cap is not None and \
+                        sum(1 for u in self.slot_uid if u is not None) >= \
+                        self.slot_cap:
                     return
                 if self.slot_uid[slot] is not None:
                     break  # occupied; try the next slot
@@ -635,6 +794,8 @@ class ContinuousBatchingEngine:
 
         Returns (uid, token) pairs emitted this step.
         """
+        self.last_step_compiled = False
+        self._expire_deadlines()
         if self.swapped:
             self._try_swap_in()
         self._admit_waiting()
@@ -664,6 +825,7 @@ class ContinuousBatchingEngine:
             next_tok, _, self.cache = self._decode(
                 self.params, self.cache, self._dev("tokens", self.tokens),
                 self._dev("cache_len", self.cache_len))
+        self._note_compiled(self._decode)
         next_np = next_tok.cpu().numpy()
         self.decode_steps += 1
         self._active_slot_steps += len(active)
@@ -709,6 +871,7 @@ class ContinuousBatchingEngine:
             logits, self.cache = self._spec_decode(
                 self.params, self.cache, self._dev("window", win),
                 self._dev("cache_len", self.cache_len))
+        self._note_compiled(self._spec_decode)
         # the compiled step's logits are its graph's buffer: verified here,
         # before the next call overwrites them
         toks, n_emit = greedy_verify(logits, self._dev("drafts", win[:, 1:]))
@@ -742,6 +905,10 @@ class ContinuousBatchingEngine:
             if not retired:
                 self.draft.commit(slot, seq[:-1], seq[-1])
         return emitted
+
+    def _note_compiled(self, step) -> None:
+        self.last_step_compiled = getattr(step, "last_call", None) in (
+            "warmup", "capture")
 
     def run(self, requests: List[Request]) -> Dict[int, Finished]:
         for req in requests:
@@ -791,7 +958,9 @@ class ContinuousBatchingEngine:
             "prefill_compiles": len(self.prefill_lengths),
             "kv_bytes": self.kv_bytes(),
             "admission_policy": self.admission_policy,
+            "accepting": self.accepting,
             "shed": self.shed_count,
+            "timeouts": self.timeout_count,
             "rejected": len(self.rejected),
         }
         waits = list(self.admission_waits.values())
@@ -806,6 +975,7 @@ class ContinuousBatchingEngine:
             out["spec_acceptance"] = round(
                 self.spec_accepted / max(1, self.spec_drafted), 4)
         if self.kv is not None:
+            out["held_blocks"] = self._held_blocks
             out["prefill_chunks"] = self.prefill_chunks
             out["prefill_chunks_skipped"] = self.prefill_chunks_skipped
             out["cow_copies"] = self.cow_copies

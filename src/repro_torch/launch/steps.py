@@ -12,6 +12,7 @@ place.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -54,8 +55,8 @@ def _launch_counters() -> Tuple[Dict[str, int], ...]:
     """Every kernel wrapper's launch counts (plain dicts, updated in place)."""
     from repro_torch.kernels import (depthwise_conv, flash_attention,
                                      flash_backward, rmsnorm)
-    return (flash_attention.launches, flash_backward.launches,
-            depthwise_conv.launches, rmsnorm.launches)
+    return (flash_attention.launches, flash_attention.mixed_launches,
+            flash_backward.launches, depthwise_conv.launches, rmsnorm.launches)
 
 
 def _leaf_key(x):
@@ -203,11 +204,26 @@ class CompiledStep:
         return out
 
     def _capture(self, device, run):
-        """A captured graph of ``run()`` and what it returned."""
+        """A captured graph of ``run()`` and what it returned.
+
+        Python's garbage collector is kept off during the capture: a dead
+        reference cycle that holds a CUDA graph (an engine caught in one)
+        would otherwise be collected inside it, and releasing that graph's
+        memory pool frees device memory, which invalidates a capture in the
+        default global mode (``cudaErrorStreamCaptureInvalidated``). The
+        cycle is collected after, as usual (``torch.cuda.graph`` no longer
+        collects before capturing; a collection of its own would cost every
+        capture the heap's walk)."""
         pool = self.pool.on(device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream):
-            out = run()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream):
+                out = run()
+        finally:
+            if collecting:
+                gc.enable()
         return graph, out
 
     # -- calls -------------------------------------------------------------

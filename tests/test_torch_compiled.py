@@ -329,3 +329,33 @@ def test_adam_four_steps_match_jax():
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), **F32)
         np.testing.assert_allclose(ts["m"][k].numpy(), np.asarray(js["m"][k]), **F32)
         np.testing.assert_allclose(ts["v"][k].numpy(), np.asarray(js["v"][k]), **F32)
+
+
+def test_capture_collects_no_garbage_during_it(monkeypatch):
+    """The garbage collector is off while a capture lasts (a dead cycle
+    holding a CUDA graph, collected there, would release its pool and
+    invalidate the capture) and back on after it, also when the captured
+    step raises. The CUDA graph and its context are stood in for."""
+    import contextlib
+    import gc
+    events = []
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, stream=None):
+        events.append(("capture", gc.isenabled()))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(tsteps.GraphPool, "on", lambda self, device: self)
+    step = tsteps.CompiledStep(lambda: None, "stub")
+    assert gc.isenabled()
+    step._capture(None, lambda: events.append(("run", gc.isenabled())))
+    assert events == [("capture", False), ("run", False)] and gc.isenabled()
+
+    def fail():
+        raise RuntimeError("a step that cannot be captured")
+
+    with pytest.raises(RuntimeError):
+        step._capture(None, fail)
+    assert gc.isenabled()

@@ -1400,3 +1400,134 @@ def test_profile_rung_times_replays_on_the_card(freed):
         assert rung._step is None  # the graphs were dropped
         assert state["params"]["embed"].dtype == rung.dtype
     assert int(state["step"]) == step
+
+
+# ---------------------------------------------------------------------------
+# a KV cache in a dtype other than the queries' (the serve-lean rung)
+# ---------------------------------------------------------------------------
+
+MIXED_PAIRS = [(torch.float32, torch.bfloat16, False), (torch.float32, torch.bfloat16, True),
+               (torch.bfloat16, torch.float32, False), (torch.bfloat16, torch.float32, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt,lowp", MIXED_PAIRS)
+@pytest.mark.parametrize("name", ["flash_decode", "flash_decode_paged", "flash_decode_spec",
+                                  "flash_decode_spec_paged"])
+@pytest.mark.parametrize("T", [6, 64])
+def test_mixed_dtype_decode_matches_plain(name, qdt, kvdt, lowp, T):
+    """Each decode kernel with q and the cache in two dtypes, against the
+    plain version at ragged lengths including 0, the capacity and past it
+    (bs 16, T 6 or 64 table entries: one split or several; speculative S =
+    5); launched once a call, counted as its mixed-dtype instantiation, and
+    the output in q's dtype: f32 q to 2e-5 (bf16 cache values are exact in
+    f32), a bf16 output to 2e-5 of the plain version's f32 result beside its
+    own rounding; with lowp, 5e-2."""
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(T + 3 * lowp)
+    B, K, G, hd, bs, S = 5, 2, 4, 64, 16, 5
+    cap = bs * T
+    spec, paged = "spec" in name, name.endswith("paged")
+    q = torch.randn((B, K) + ((S,) if spec else ()) + (G, hd), generator=g,
+                    device=dev).to(qdt)
+    lens = torch.tensor([0, 7, cap // 2 + 3, cap, cap + 1], dtype=torch.int32, device=dev)
+    if paged:
+        kp, vp, table = _pool_and_table(g, dev, kvdt, B, K, hd, hd, bs, T)
+        args = (q, kp, vp, table, lens)
+    else:
+        k, v = (torch.randn(B, cap, K, hd, generator=g, device=dev).to(kvdt) for _ in range(2))
+        args = (q, k, v, lens)
+    key = f"{name}:{str(qdt)[6:]}:{str(kvdt)[6:]}"
+    before, mixed = fa.launches[name], fa.mixed_launches[key]
+    out = getattr(fa, name)(*args, lowp=lowp)
+    assert fa.launches[name] == before + 1 and fa.mixed_launches[key] == mixed + 1
+    assert out.dtype == qdt
+    plain = getattr(ref, f"ref_{name}")
+    if lowp:
+        torch.testing.assert_close(out.float(), plain(*args, lowp=True).float(), **BF16)
+    elif qdt == torch.bfloat16:
+        _assert_bf16_out_close(out, plain(q.float(), *args[1:]), F32)
+    else:
+        torch.testing.assert_close(out, plain(*args), **F32)
+    if not spec:
+        assert not out[0].any(), "a length-0 row must return zeros"
+    assert torch.equal(out, getattr(fa, name)(*args, lowp=lowp))
+
+
+@pytest.mark.cuda
+def test_set_kv_dtype_round_trips_on_a_captured_engine(freed):
+    """An engine walked f32 -> bf16 -> f32 twice while it decodes, through
+    ServeJob's migrations on the default serve ladder: each cache dtype's
+    decode graph is captured once (the walk back replays it), the second
+    walk allocates nothing (peak and reserved memory unchanged), the cache
+    is back in f32 at the top rung, and the streams finish."""
+    from repro_torch.engine.jobs import ServeJob, default_serve_ladder
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    dev = _device()
+    cfg = _llama("reduced")
+    model = build_model(cfg, impl="pallas", device=dev)
+    params = model.init(model.generator(0))
+    engine = serve.ContinuousBatchingEngine(model, params, max_batch=8, max_seq=96)
+    reqs = [serve.Request(uid=u, prompt=r.prompt, max_new_tokens=60)
+            for u, r in enumerate(_serve_requests(cfg, 60)[:8])]
+    job = ServeJob(engine, reqs, rungs=default_serve_ladder(8), adaptive=False)
+    job.prepare()
+    tick = 0
+
+    def run(n):
+        nonlocal tick
+        for _ in range(n):
+            job.step(tick)
+            tick += 1
+
+    run(3)  # eager, capture, replay at serve-full
+    torch.cuda.synchronize()
+    marks = []
+    for walk in range(2):
+        for direction in ("down", "down", "up", "up"):
+            job.migrate(direction, "test", tick)
+            run(3)
+        torch.cuda.synchronize()
+        marks.append((torch.cuda.max_memory_allocated(dev), torch.cuda.memory_reserved(dev),
+                      engine._decode.captures))
+    assert job.active_rung.name == "serve-full" and engine.cache["k"].dtype == torch.float32
+    assert set(engine._kv_store) == {torch.float32, torch.bfloat16}
+    assert marks[0][2] == marks[1][2] == 2, marks  # one capture per cache dtype
+    assert marks[1][:2] == marks[0][:2], marks  # the second walk allocated nothing
+    assert fa.mixed_launches["flash_decode:float32:bfloat16"] > 0
+    engine.run([])
+    assert sorted(engine.finished) == list(range(8))
+
+
+@pytest.mark.cuda
+def test_mixed_cli_on_the_card(freed, tmp_path):
+    """``launch.mixed.main`` at the reduced size on the card: training and
+    serving under one arbiter, the shared thermal trace forcing a
+    downgrade, the serve job's decode steps captured and replayed."""
+    import json
+
+    import numpy as np
+    from repro_torch.engine.timeline import Timeline
+    from repro_torch.launch import mixed
+    _device()
+    out = str(tmp_path / "merged.json")
+    fa.reset_launches()
+    res = mixed.main(["--arch", "llama3.2-1b", "--reduced", "--ticks", "16",
+                      "--batch", "8", "--seq", "64", "--attn-impl", "pallas",
+                      "--slots", "4", "--requests", "8", "--prompt-len", "16",
+                      "--gen", "12", "--max-seq", "512", "--thermal-trace",
+                      "0.5:0.3:4.0", "--quiet", "--timeline-out", out])
+    with open(out) as f:
+        tl = Timeline.from_json(json.load(f))
+    assert set(tl.jobs()) == {"train", "serve"}
+    assert any(m.reason in ("interference", "arbitration") for m in tl.migrations)
+    assert len(res.jobs["train"].result().losses) == 16
+    assert all(np.isfinite(res.jobs["train"].result().losses))
+    serve_job = res.jobs["serve"]
+    assert serve_job.result()
+    steps = serve_job.engine.compiled_steps()
+    assert sum(f.captures for f in steps) >= 1 and sum(f.replays for f in steps) > 0
+    launches = fa.all_launches()
+    assert launches["flash_decode"] > 0 and launches["flash_fwd"] > 0
+    assert launches["flash_bwd_dq"] > 0

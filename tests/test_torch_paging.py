@@ -464,16 +464,26 @@ def test_engine_refuses_what_is_not_ported(params):
     with pytest.raises(NotImplementedError, match="sampling"):
         tserve.ContinuousBatchingEngine(model, params[1], max_batch=1,
                                         max_seq=16, temperature=0.7)
+    # deadlines, drain, hold_blocks and the rung knobs are ported now
+    # (tests/test_torch_robustness.py and tests/test_torch_arbitration.py
+    # hold them to the reference); sampling is the one refusal left
     engine = tserve.ContinuousBatchingEngine(model, params[1], max_batch=1,
                                              max_seq=16, kv_layout="paged")
-    with pytest.raises(NotImplementedError, match="deadlines"):
-        engine.submit(tserve.Request(uid=0, prompt=np.arange(3, dtype=np.int32),
-                                     max_new_tokens=2, deadline_steps=4))
-    for call in (engine.drain, lambda: engine.hold_blocks(2),
-                 lambda: engine.set_slot_cap(1), engine.set_kv_dtype,
-                 lambda: engine.set_attn_impl("naive")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    assert engine.submit(tserve.Request(uid=0, prompt=np.arange(3, dtype=np.int32),
+                                        max_new_tokens=2, deadline_steps=4))
+    assert engine.hold_blocks(2) == 1 == engine.stats()["held_blocks"]  # all it has
+    engine.release_held()
+    engine.set_slot_cap(1)
+    engine.set_kv_dtype("bfloat16")
+    engine.set_attn_impl("pallas")
+    engine.run([])
+    assert engine.finished[0].reason == "length"
+    engine.set_kv_dtype(None)
+    assert engine.cache["k"].dtype == torch.float32
+    engine.drain()
+    assert not engine.submit(tserve.Request(uid=1, prompt=np.arange(3, dtype=np.int32),
+                                            max_new_tokens=2))
+    assert engine.rejected[1].reason == "draining"
 
 
 def test_cli_serves_paged_on_the_cpu(tmp_path):
