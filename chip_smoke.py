@@ -159,6 +159,26 @@ Phases (any failure raises and the script exits non-zero):
    phase 5's rule; (f) bf16 weights over an f32 cache (bf16 queries over an
    f32 cache), reported. Prints ticks and migrations per job, each rung's
    median step ms, tokens/s by serve rung, captures and replays, memory.
+18. Federated learning: (a) ``fl.real.run_real``, the real FedAvg cohort
+   of ``benchmarks/table4_fl.py`` at ResNet34's published widths (35
+   classes, 1x32x32, 21.29M parameters, seeded f32 weights): 8 clients x 6
+   rounds x 4 local sgd steps (lr 0.05) of batch 16, captured on cuDNN's
+   default algorithms, then captured and eager on deterministic ones (the
+   default conv backward sums with atomics, which 192 steps amplify to
+   about 1% between two runs). Gates: every loss finite, one capture for
+   the 192 local steps of each captured run, the deterministic captured and
+   eager round losses within LOSS_RTOL, and each round's ``fedavg`` on the
+   card (the first run) within 1e-6 of each leaf's largest magnitude of a
+   float64 host mean of the same deltas. Prints the
+   round losses, whether the last is below the first (reported, not
+   gated), the median local step ms and images/s, the ms of a ``fedavg``
+   round beside its bytes bound, the peak memory and the kernel launches
+   (none: ResNet34 has no depthwise layer and trains on the plain path).
+   (b) ``repro_torch.launch.fleet.main`` at its documented usage (480
+   clients, 6 rounds, 20 a round, churn 0.1 and 0.35 in round 4, drop, dup
+   and corrupt 0.05) with a coordinator crash in round 2, then without:
+   the resumed run's aggregates equal the crash-free run's (crc32), and
+   every class of ``engine.chaos.FLEET_KINDS`` was applied; wall seconds.
 
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
@@ -184,8 +204,8 @@ all four, bf16 q over an f32 cache in flash_decode, at the serve shape.
 
 Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
 ...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
-``{"rmsnorm": ...}``, ``{"planner": ...}``, ``{"cotenancy": ...}`` and
-``{"kernels": [...]}`` (all ten kernels, then the five mixed-dtype decode
+``{"rmsnorm": ...}``, ``{"planner": ...}``, ``{"cotenancy": ...}``,
+``{"fl": ...}`` and ``{"kernels": [...]}`` (all ten kernels, then the five mixed-dtype decode
 entries with their phase-17 launches), the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device":
 {...}}``.
@@ -2512,6 +2532,155 @@ def cotenancy_phase(fa, serve, build_model, cfg, reqs):
     return out, launches, mixed_launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: federated learning
+# ---------------------------------------------------------------------------
+
+# benchmarks/table4_fl.py's real FedAvg cohort (run_real), at ResNet34's
+# published widths
+FL = dict(arch="resnet34", clients=8, rounds=6, local_steps=4, batch=16, lr=0.05,
+          seed=0)
+FL_AGG_TOL = 1e-6  # fedavg on the card against a float64 host mean, of each leaf's max
+# launch/fleet.py's documented usage; run with and without a coordinator crash
+FLEET_ARGV = ["--clients", "480", "--rounds", "6", "--per-round", "20",
+              "--churn", "0.1", "--heavy-churn", "4:0.35", "--drop", "0.05",
+              "--dup", "0.05", "--corrupt", "0.05", "--quiet"]
+FLEET_CRASH_ROUND = 2
+
+
+def fl_phase(device="cuda", cfg=None):
+    """Phase 18: (a) ``fl.real.run_real`` at full width, captured then eager,
+    each captured round's fedavg held to a float64 host mean; (b)
+    ``launch.fleet.main`` with and without a coordinator crash. Returns the
+    fl JSON object. ``device`` and ``cfg`` (a cut) are for rehearsing the
+    control flow on the CPU."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine.chaos import FLEET_KINDS
+    from repro_torch.fl.real import run_real
+    from repro_torch.kernels import depthwise_conv, flash_attention, flash_backward, rmsnorm
+    from repro_torch.launch import fleet
+    from repro_torch.tree import tree_leaves
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or get_config(FL["arch"])
+    counters = (flash_attention.launches, flash_attention.mixed_launches,
+                flash_backward.launches, depthwise_conv.launches, rmsnorm.launches)
+    agg_err = []
+
+    def host_mean(rnd, glob, deltas, new):
+        worst = 0.0
+        for g, n, *ds in zip(*(tree_leaves(t) for t in [glob, new] + deltas)):
+            want = g.double().cpu().numpy() + np.mean(
+                np.stack([d.double().cpu().numpy() for d in ds]), 0)
+            err = np.abs(n.double().cpu().numpy() - want).max()
+            worst = max(worst, float(err / max(np.abs(want).max(), 1e-30)))
+        agg_err.append(worst)
+
+    # -- (a) the real FedAvg cohort, captured then eager -----------------------
+    # cuDNN's default conv backward algorithms sum with atomics, so two runs
+    # of the cohort differ run to run, and 192 sgd steps amplify it (about 1%
+    # by the last round). The first run keeps the default (its times are the
+    # ones a caller gets); the comparison of captured with eager runs on
+    # deterministic algorithms, where the same steps give the same bits.
+    kw = dict(n_clients=FL["clients"], rounds=FL["rounds"], local_steps=FL["local_steps"],
+              batch=FL["batch"], lr=FL["lr"], seed=FL["seed"], device=device)
+    out = {"config": dict(FL, reduced=cfg != get_config(FL["arch"]))}
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for mode, jit, det in (("captured", True, False),
+                               ("captured_deterministic", True, True),
+                               ("eager_deterministic", False, True)):
+            torch.backends.cudnn.deterministic = det
+            for counts in counters:
+                for k in counts:
+                    counts[k] = 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = run_real(cfg, jit=jit, on_aggregate=host_mean if mode == "captured" else None,
+                           **kw)
+            wall = time.perf_counter() - t0
+            launched = {k: n for counts in counters for k, n in counts.items() if n}
+            check(all(np.isfinite(res.losses)), f"fl {mode}: losses {res.losses}")
+            check(res.captures == (1 if jit and on_card else 0),  # eager on the CPU
+                  f"fl {mode}: {res.captures} captures for {len(res.step_s)} local steps")
+            steady = res.step_s[2:] if jit else res.step_s[1:]  # warmup, capture
+            med = statistics.median(steady)
+            n_params = sum(p.numel() for p in tree_leaves(res.params))
+            # fedavg reads the global and each delta once and writes the new global
+            agg_bound = (FL["clients"] + 2) * 4 * n_params / HBM_BYTES_PER_S * 1e3
+            runs[mode] = {
+                "losses": res.losses, "last_below_first": res.losses[-1] < res.losses[0],
+                "captures": res.captures, "local_steps": len(res.step_s),
+                "cudnn_deterministic": det,
+                "median_step_ms": 1e3 * med, "images_per_s": FL["batch"] / med,
+                "fedavg_ms": [1e3 * s for s in res.agg_s],
+                "fedavg_median_ms": 1e3 * statistics.median(res.agg_s),
+                "fedavg_bound_ms": agg_bound, "params": n_params, "wall_s": wall,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                "launches": launched}
+            r = runs[mode]
+            print(f"[fl] real FedAvg {mode}: {cfg.name} ({n_params} parameters), "
+                  f"{FL['clients']} clients x {FL['rounds']} rounds x {FL['local_steps']} "
+                  f"local steps, batch {FL['batch']}: round losses "
+                  f"{[round(x, 4) for x in res.losses]} (last below first: "
+                  f"{r['last_below_first']}); median local step {r['median_step_ms']:.2f} ms "
+                  f"= {r['images_per_s']:.0f} images/s; fedavg {r['fedavg_median_ms']:.2f} "
+                  f"ms a round (bytes bound {agg_bound:.3f} ms); captures {res.captures}; "
+                  f"peak memory {r['peak_memory_gb'] or 0:.2f} GB; kernel launches "
+                  f"{launched}; {wall:.1f} s", flush=True)
+            del res
+            if on_card:
+                free_cuda()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def rel_diff(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(runs[a]["losses"], runs[b]["losses"]))
+
+    rel = rel_diff("captured_deterministic", "eager_deterministic")
+    spread = rel_diff("captured", "captured_deterministic")
+    check(rel <= LOSS_RTOL, f"fl: captured vs eager round losses differ by {rel:.3g}")
+    check(len(agg_err) == FL["rounds"] and max(agg_err) <= FL_AGG_TOL,
+          f"fl: fedavg against the float64 host mean: {agg_err}")
+    print(f"[fl] captured vs eager round losses (deterministic cuDNN): max relative "
+          f"difference {rel:.3g}; the default algorithms against them {spread:.3g} "
+          f"(reported); fedavg against a float64 host mean, worst leaf per round "
+          f"{[f'{e:.3g}' for e in agg_err]}", flush=True)
+    out.update(runs, captured_vs_eager_loss_rel_diff=rel,
+               default_vs_deterministic_loss_rel_diff=spread, fedavg_host_rel_err=agg_err)
+
+    # -- (b) the fleet CLI with and without a coordinator crash ------------------
+    fl_fleet = {}
+    with tempfile.TemporaryDirectory() as d:
+        for label, extra in (("crash", ["--crash-round", str(FLEET_CRASH_ROUND)]),
+                             ("clean", [])):
+            path = f"{d}/{label}.json"
+            t0 = time.perf_counter()
+            res = fleet.main(FLEET_ARGV + extra + ["--json-out", path])
+            wall = time.perf_counter() - t0
+            with open(path) as f:
+                payload = json.load(f)
+            fl_fleet[label] = {"wall_s": wall, "agg_crc": [r.agg_crc for r in res.rounds],
+                               "applied": payload["chaos"]["applied"],
+                               "accepted": [r.accepted for r in res.rounds],
+                               "slo_attainment": res.slo_attainment,
+                               "goodput_samples_per_h": res.goodput_samples_per_h}
+            print(f"[fl] fleet CLI ({label}): {wall:.2f} s wall, chaos applied "
+                  f"{payload['chaos']['applied']}", flush=True)
+    check(fl_fleet["crash"]["agg_crc"] == fl_fleet["clean"]["agg_crc"],
+          f"fleet: the crash-resumed aggregates {fl_fleet['crash']['agg_crc']} differ "
+          f"from the crash-free run's {fl_fleet['clean']['agg_crc']}")
+    missing = set(FLEET_KINDS) - set(fl_fleet["crash"]["applied"])
+    check(not missing, f"fleet: fault classes never applied: {sorted(missing)}")
+    out["fleet"] = dict(fl_fleet, argv=FLEET_ARGV, crash_round=FLEET_CRASH_ROUND)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2597,6 +2766,9 @@ def main() -> int:
     cotenancy_out, cotenancy_launches, cotenancy_mixed = cotenancy_phase(
         fa, serve, build_model, cfg, reqs)
     lap("phase 17")
+    free_cuda()
+    fl_out = fl_phase()
+    lap("phase 18")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -2703,6 +2875,7 @@ def main() -> int:
     print(json.dumps({"rmsnorm": rms_out}))
     print(json.dumps({"planner": planner_out}))
     print(json.dumps({"cotenancy": cotenancy_out}, default=str))
+    print(json.dumps({"fl": fl_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

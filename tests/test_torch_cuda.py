@@ -1531,3 +1531,43 @@ def test_mixed_cli_on_the_card(freed, tmp_path):
     launches = fa.all_launches()
     assert launches["flash_decode"] > 0 and launches["flash_fwd"] > 0
     assert launches["flash_bwd_dq"] > 0
+
+
+# ---------------------------------------------------------------------------
+# federated learning: the real FedAvg cohort (fl/real.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_run_real_on_the_card(freed, monkeypatch):
+    """``fl.real.run_real`` at the reduced ResNet34, 2 clients x 2 rounds x 2
+    local steps: captured against eager from the same seeded parameters
+    (losses to 1e-3 relative), one capture for the whole cohort, and each
+    round's fedavg on the card within 1e-6 of each leaf's largest magnitude
+    of a float64 host mean of the same deltas. On deterministic cuDNN
+    algorithms: the default conv backward sums with atomics, so two runs of
+    the same steps differ, and sgd steps amplify it."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.fl.real import run_real
+    _device()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = get_config("resnet34").reduced()
+    errs = []
+
+    def check(rnd, glob, deltas, new):
+        for g, n, *ds in zip(*(tree_leaves_(t) for t in [glob, new] + deltas)):
+            want = g.double().cpu().numpy() + np.mean(
+                np.stack([d.double().cpu().numpy() for d in ds]), 0)
+            got = n.double().cpu().numpy()
+            assert n.device == g.device and n.dtype == g.dtype
+            errs.append(float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)))
+
+    sizes = dict(n_clients=2, rounds=2, local_steps=2)
+    cap = run_real(cfg, jit=True, on_aggregate=check, **sizes)
+    eager = run_real(cfg, jit=False, **sizes)
+    assert cap.captures == 1 and eager.captures == 0
+    assert all(np.isfinite(cap.losses)) and all(np.isfinite(eager.losses))
+    np.testing.assert_allclose(cap.losses, eager.losses, rtol=1e-3)
+    assert errs and max(errs) <= 1e-6, max(errs)
+    assert all(p.is_cuda for p in tree_leaves_(cap.params))
