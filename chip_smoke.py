@@ -179,6 +179,27 @@ Phases (any failure raises and the script exits non-zero):
    and corrupt 0.05) with a coordinator crash in round 2, then without:
    the resumed run's aggregates equal the crash-free run's (crc32), and
    every class of ``engine.chaos.FLEET_KINDS`` was applied; wall seconds.
+19. Sampled serving (``SAMPLE``: temperature 0.9, top-k 32, sample seed 1,
+   ``benchmarks/spec_bench.py``'s settings; the draw inside the captured
+   decode step, keys ``fold_in(fold_in(PRNGKey(seed), uid), index)`` from
+   ``repro_torch.prng``). (a) The phase-4 requests at 16 layers, eager,
+   captured, captured: streams and launches equal; uid 0 alone in a 1-slot
+   engine gives its batched stream; the plain path's streams under the
+   stream rule (equal up to a first difference, where the held run's
+   decision — the perturbed top-2 margin of its draw, or |u·p(d) − q(d)| of
+   an accept test — lay within NEAR_TIE of a tie; an eager rerun of the held
+   path records the margins, only where a stream differs). Prints tok/s,
+   a captured sampled step's host and device ms, and the sampler's own
+   device ms at (8, 128256) beside a greedy argmax. (b) temperature 5.0 and
+   top-k 1 give phase 4's greedy streams exactly. (c) At 8 layers, as
+   phases 9-11: paged with shared prefixes, swap, and draft depth 4 with
+   the n-gram draft, contiguous and paged, each held to the plain path
+   under the stream rule; tok/s and acceptance. (d) A sampled ``ModelDraft``
+   over the full vocabulary (``MODEL_DRAFT``: temperature 1.0, no top-k,
+   the full width cut to 2 layers) drafting 4 for the 8-layer target on 8
+   of the requests, 16 tokens each, held likewise. (e) ``prng`` on the
+   card: (8, 128256) random bits and uniforms equal the CPU's, Gumbel noise
+   within 1e-6, the draws equal but at a near tie.
 
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
@@ -205,8 +226,10 @@ all four, bf16 q over an f32 cache in flash_decode, at the serve shape.
 Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
 ...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
 ``{"rmsnorm": ...}``, ``{"planner": ...}``, ``{"cotenancy": ...}``,
-``{"fl": ...}`` and ``{"kernels": [...]}`` (all ten kernels, then the five mixed-dtype decode
-entries with their phase-17 launches), the card's name and power limit as
+``{"fl": ...}``, ``{"serve_sampled": ...}`` and ``{"kernels": [...]}`` (all
+ten kernels, with phase 19's launches on the five it runs, then the five
+mixed-dtype decode entries with their phase-17 launches), the card's name
+and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -2681,6 +2704,350 @@ def fl_phase(device="cuda", cfg=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: sampled serving
+# ---------------------------------------------------------------------------
+
+# benchmarks/spec_bench.py:123's sampling settings, seed 1
+SAMPLE = dict(temperature=0.9, top_k=32, sample_seed=1)
+# a sampled ModelDraft over the full vocabulary, for a target sampling the
+# same way; its draft is the full width cut to DRAFT_LAYERS
+MODEL_DRAFT = dict(temperature=1.0, top_k=0, sample_seed=1, requests=8, gen=16,
+                   layers=2)
+# the stream rule: two sampled streams of a request are equal up to their
+# first difference, where the held run's decision lay this near a tie
+NEAR_TIE = 1e-4
+
+
+def _top2(x):
+    """The margin between the two largest values of each row (inf where the
+    second is -inf: no tie is possible)."""
+    v = torch.topk(x, 2, dim=-1).values
+    return torch.where(torch.isinf(v[..., 1]), torch.full_like(v[..., 0], float("inf")),
+                       v[..., 0] - v[..., 1])
+
+
+def verify_margins(prng, sampling, logits, drafts, draft_probs, keys, temperature,
+                   top_k):
+    """(B, S) margin of ``rejection_verify``'s decisions at each window
+    position: the accept test's |u·p(d) − q(d)| (positions < S-1) and the
+    resample's perturbed top-2 margin, the smaller of the two."""
+    q = sampling.sample_probs(logits, temperature, top_k)
+    B, S, V = q.shape
+    u = prng.uniform(prng.fold_in(keys, 0))
+    out = torch.full((B, S), float("inf"), device=q.device)
+    fb = q
+    if S > 1:
+        d = drafts.long()
+        qd = torch.gather(q[:, :-1], -1, d[..., None])[..., 0]
+        if draft_probs is None:
+            pd = torch.ones_like(qd)
+            resid = torch.clamp_min(
+                q[:, :-1] - torch.nn.functional.one_hot(d, V) * qd[..., None], 0)
+        else:
+            p = draft_probs.float()
+            pd = torch.gather(p, -1, d[..., None])[..., 0]
+            resid = torch.clamp_min(q[:, :-1] - p, 0)
+        out[:, :-1] = (u[:, :-1] * pd - qd).abs()
+        total = resid.sum(-1, keepdim=True)
+        fb = torch.cat([torch.where(total > 0, resid / total.clamp_min(1e-30),
+                                    q[:, :-1]), q[:, -1:]], 1)
+    lg = torch.where(fb > 0, torch.log(fb), float("-inf"))
+    return torch.minimum(out, _top2(lg + prng.gumbel(prng.fold_in(keys, 1), (V,))))
+
+
+def recorded_margins(serve, run):
+    """``run()`` with the engine's sampler and verifier wrapped so that every
+    decision records its margin by stream key (an eager engine, built inside
+    ``run``: a captured graph would replay without the wrappers). Returns
+    (what ``run`` returned, {key: the smallest margin met under it})."""
+    from repro_torch import prng
+    from repro_torch.launch import sampling
+    rec = []
+    real_sampler, real_verify = serve.build_sampler, serve.rejection_verify
+
+    def build_sampler(t, k):
+        fn = real_sampler(t, k)
+
+        def sample(logits, keys):
+            lg = sampling.mask_logits(logits, t, k)
+            rec.append((keys.clone(), _top2(lg + prng.gumbel(keys, (lg.shape[-1],)))))
+            return fn(logits, keys)
+        return sample
+
+    def verify(logits, drafts, probs, keys, *, temperature, top_k=0):
+        rec.append((keys.clone(), verify_margins(prng, sampling, logits, drafts, probs,
+                                                 keys, temperature, top_k)))
+        return real_verify(logits, drafts, probs, keys, temperature=temperature,
+                           top_k=top_k)
+
+    serve.build_sampler, serve.rejection_verify = build_sampler, verify
+    try:
+        out = run()
+    finally:
+        serve.build_sampler, serve.rejection_verify = real_sampler, real_verify
+    margins = {}
+    for keys, m in rec:
+        for k, v in zip(keys.reshape(-1, 2).tolist(), m.reshape(-1).tolist()):
+            margins[tuple(k)] = min(margins.get(tuple(k), float("inf")), v)
+    return out, margins
+
+
+def hold_sampled(label, got, want, seed, rerun):
+    """The stream rule: ``got`` (the held run's streams) equals ``want`` but
+    where, at a stream's first difference, the held run's decision lay within
+    NEAR_TIE of a tie. ``rerun()`` repeats the held run eagerly with its
+    margins recorded (``recorded_margins``), only where a stream differs, and
+    must give ``got`` again. Returns (identical streams, flips)."""
+    from repro_torch import prng
+    check(sorted(got) == sorted(want), f"{label}: requests missing")
+    diffs = []
+    for u in sorted(want):
+        a, b = got[u], want[u]
+        if a != b:
+            check(len(a) == len(b), f"{label}: uid {u} has {len(a)} tokens, not {len(b)}")
+            diffs.append((u, next(j for j in range(len(a)) if a[j] != b[j])))
+    flips = []
+    if diffs:
+        again, margins = rerun()
+        check(again == got, f"{label}: the recorded eager rerun gave other streams")
+        base = prng.PRNGKey(seed)
+        for u, i in diffs:
+            key = tuple(prng.fold_in(prng.fold_in(base, u), i).tolist())
+            m = margins.get(key, float("inf"))
+            print(f"[{label}] uid {u} flips at token {i}: {got[u][i]} vs {want[u][i]}, "
+                  f"decision margin {m:.3g} (near tie below {NEAR_TIE})")
+            check(m < NEAR_TIE, f"{label}: uid {u} flips where the margin is {m}")
+            flips.append({"uid": u, "index": i, "margin": m})
+    print(f"[{label}] {len(want) - len(diffs)}/{len(want)} streams token-identical "
+          f"to the plain path's", flush=True)
+    return len(want) - len(diffs), flips
+
+
+def sampler_cost(serve, prng, V):
+    """The sampler alone at the serve step's shape (8, V) under SAMPLE, on the
+    card: its ms eagerly and as a captured graph (CUDA events, ``time_ms``;
+    the eager figure holds launch gaps, the graph's is the device time a
+    captured step spends on it), its kernels' device ms and launches from
+    ``torch.profiler``, beside a greedy argmax of the same logits."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    logits = torch.randn(SERVE["slots"], V, generator=g, device="cuda") * 3
+    keys = torch.as_tensor(prng.fold_in(prng.fold_in(prng.PRNGKey(1),
+                                                     np.arange(SERVE["slots"])), 5),
+                           device="cuda")
+    sampler = serve.build_sampler(SAMPLE["temperature"], SAMPLE["top_k"])
+    kern = device_kernels(lambda: sampler(logits, keys))
+    graph = torch.cuda.CUDAGraph()  # as it runs inside a captured step
+    with torch.cuda.graph(graph):
+        sampler(logits, keys)
+    out = {"shape": [SERVE["slots"], V], "sampler_ms": time_ms(lambda: sampler(logits, keys)),
+           "sampler_graph_ms": time_ms(graph.replay),
+           "sampler_kernel_ms": sum(ms for ms, _, _ in kern),
+           "sampler_launches": sum(n for _, n, _ in kern),
+           "argmax_ms": time_ms(lambda: logits.argmax(-1))}
+    del graph
+    print(f"[sampled] sampler at ({SERVE['slots']}, {V}): {out['sampler_ms']:.4f} ms eager, "
+          f"{out['sampler_graph_ms']:.4f} ms as a graph (CUDA events), "
+          f"{out['sampler_kernel_ms']:.4f} ms in {out['sampler_launches']} kernels "
+          f"(profiler); greedy argmax {out['argmax_ms']:.4f} ms", flush=True)
+    return out
+
+
+def prng_on_the_card(prng, sampling, V):
+    """Phase 19(e): (8, V) random bits, uniforms and Gumbel noise on the card
+    against the CPU's from the same keys: bits and uniforms equal, Gumbel
+    within 1e-6; the sampler's draws equal but at a near tie."""
+    keys = torch.as_tensor(prng.fold_in(prng.fold_in(prng.PRNGKey(3), np.arange(8)),
+                                        np.arange(8) * 7))
+    kc = keys.cuda()
+    bits_equal = torch.equal(prng.random_bits(kc, (V,)).cpu(), prng.random_bits(keys, (V,)))
+    uni_equal = torch.equal(prng.uniform(kc, (V,)).cpu(), prng.uniform(keys, (V,)))
+    gc_, gh = prng.gumbel(kc, (V,)).cpu(), prng.gumbel(keys, (V,))
+    gerr, gok = max_err(gc_, gh, dict(rtol=1e-6, atol=1e-6))
+    logits = torch.randn(8, V, generator=torch.Generator().manual_seed(5)) * 3
+    lg = sampling.mask_logits(logits, SAMPLE["temperature"], SAMPLE["top_k"])
+    dc = prng.categorical(kc, lg.cuda()).cpu()
+    dh = prng.categorical(keys, lg)
+    margin = _top2(lg + gh)
+    draws_ok = bool(((dc == dh) | (margin < NEAR_TIE)).all())
+    out = {"shape": [8, V], "bits_equal": bits_equal, "uniform_equal": uni_equal,
+           "gumbel_max_abs_err": gerr, "draws_equal": int((dc == dh).sum())}
+    print(f"[sampled] prng on the card (8, {V}): bits equal {bits_equal}, uniforms equal "
+          f"{uni_equal}, Gumbel max |err| {gerr:.3g}, draws equal "
+          f"{out['draws_equal']}/8", flush=True)
+    check(bits_equal and uni_equal and gok and draws_ok,
+          f"prng on the card differs from the CPU's: {out}")
+    return out
+
+
+def sampled_phase(fa, serve, build_model, cfg, reqs, greedy_streams=None):
+    """Phase 19: sampled serving (``temperature > 0``) on every serving path,
+    held to the plain path under the stream rule. ``greedy_streams``: phase
+    4's (computed here, captured, where None). Returns (the JSON object, each
+    path's launch counts)."""
+    from repro_torch import prng
+    from repro_torch.launch import sampling
+    from repro_torch.spec.draft import ModelDraft
+    seed = SAMPLE["sample_seed"]
+    launches, out = {}, {}
+
+    def count(path, run):
+        fa.reset_launches()
+        res = run()
+        launches[path] = fa.all_launches()
+        return res
+
+    def rerun(model, params, rs, **kw):
+        """The held path's eager rerun with its margins recorded."""
+        def run():
+            done, _, _ = run_engine(serve, model, params, rs, jit=False, **kw)
+            return streams_of(done)
+        return lambda: recorded_margins(serve, run)
+
+    # -- (a) contiguous, 16 layers ----------------------------------------------
+    model = build_model(cfg, impl="pallas", device="cuda")
+    params = model.init(model.generator(0))
+    naive = build_model(cfg, impl="naive", device="cuda")
+    print(f"[sampled] {cfg.name}: {cfg.n_layers} layers, {SAMPLE}", flush=True)
+    if greedy_streams is None:
+        greedy_streams = streams_of(run_engine(serve, model, params, reqs)[0])
+    (done, engine, wall, counts), compiled = compiled_vs_eager(
+        fa, serve, model, params, reqs, "sampled", order=(False, True, True), **SAMPLE)
+    launches["sampled"] = counts
+    check(counts["flash_fwd"] > 0 and counts["flash_decode"] > 0,
+          f"the sampled run did not go through both kernels: {counts}")
+    streams = streams_of(done)
+    for u, f in done.items():
+        check(len(f.tokens) == SERVE["gen"] and all(0 <= t < cfg.vocab_size for t in f.tokens),
+              f"sampled request {u}: {len(f.tokens)} tokens")
+    check(streams != greedy_streams, "the sampled streams are the greedy ones")
+    solo = serve.ContinuousBatchingEngine(model, params, max_batch=1,
+                                          max_seq=SERVE["max_seq"], **SAMPLE)
+    r0 = reqs[0]
+    solo_tokens = solo.run([serve.Request(uid=r0.uid, prompt=r0.prompt,
+                                          max_new_tokens=r0.max_new_tokens)])[r0.uid].tokens
+    check(solo_tokens == streams[r0.uid], "uid 0 alone in a 1-slot engine gave another stream")
+    done_n, eng_n, wall_n = run_engine(serve, naive, params, reqs, **SAMPLE)
+    ident, flips = hold_sampled("sampled", streams, streams_of(done_n), seed,
+                                rerun(model, params, reqs, **SAMPLE))
+    prof = profile_decode(serve, model, params, reqs, label=", sampled", **SAMPLE)
+    cost = sampler_cost(serve, prng, cfg.vocab_size)
+    out["contig"] = {
+        "n_layers": cfg.n_layers, "tok_s": engine.tokens_out / wall, "wall_s": wall,
+        "tokens": engine.tokens_out, "decode_steps": engine.decode_steps,
+        "naive_tok_s": eng_n.tokens_out / wall_n, "identical_streams": ident,
+        "flips": flips, "solo_equals_batched": True, "compiled": compiled,
+        "decode_step_host_ms": prof[0], "decode_step_device_ms": prof[1],
+        "decode_step_flash_decode_ms": prof[2], "sampler": cost,
+        "launches": counts}
+    print(f"[sampled] pallas, captured: {engine.tokens_out / wall:.1f} tok/s; naive "
+          f"{eng_n.tokens_out / wall_n:.1f} tok/s; a captured sampled step: host "
+          f"{prof[0]:.3f} ms, device {prof[1]:.3f} ms", flush=True)
+
+    # -- (b) top-k 1 is greedy -------------------------------------------------
+    done_b, eng_b, wall_b = count("sampled_topk1", lambda: run_engine(
+        serve, model, params, reqs, temperature=5.0, top_k=1, sample_seed=seed))
+    check(streams_of(done_b) == greedy_streams,
+          "temperature 5, top-k 1 did not give phase 4's greedy streams")
+    out["topk1_equals_greedy"] = True
+    print(f"[sampled] temperature 5.0, top-k 1: phase 4's greedy streams exactly "
+          f"({eng_b.tokens_out / wall_b:.1f} tok/s)", flush=True)
+    del model, naive, params, engine, eng_n, done, done_n, solo
+    free_cuda()
+
+    # -- (c) paged, swap and speculative, 8 layers ------------------------------
+    cfg8 = dataclasses.replace(cfg, n_layers=PAGED["layers"])
+    model = build_model(cfg8, impl="pallas", device="cuda")
+    params = model.init(model.generator(0))
+    naive = build_model(cfg8, impl="naive", device="cuda")
+    shared = shared_prefix_requests(serve, reqs)
+    paged_kw = dict(kv_layout="paged", block_size=PAGED["block_size"])
+    bs = PAGED["block_size"]
+    worst = sorted(-(-min(len(r.prompt) + r.max_new_tokens, SERVE["max_seq"]) // bs)
+                   for r in shared)
+    paths = [("sampled_paged", shared, paged_kw, "flash_decode_paged"),
+             ("sampled_swap", shared, dict(paged_kw, admission_policy="swap",
+                                           num_blocks=sum(worst[-SERVE["slots"]:]) // 2 + 1),
+              "flash_decode_paged"),
+             ("sampled_spec_contig", reqs, dict(draft_depth=PAGED["draft_depth"]),
+              "flash_decode_spec"),
+             ("sampled_spec_paged", reqs, dict(paged_kw, draft_depth=PAGED["draft_depth"]),
+              "flash_decode_spec_paged")]
+    for path, rs, kw, kname in paths:
+        kw = dict(kw, **SAMPLE)
+        d, e, w = count(path, lambda: run_engine(serve, model, params, rs, **kw))
+        check(launches[path][kname] > 0, f"{path} did not launch {kname}")
+        dn, en, wn = run_engine(serve, naive, params, rs, **kw)
+        ident, flips = hold_sampled(path, streams_of(d), streams_of(dn), seed,
+                                    rerun(model, params, rs, **kw))
+        st = e.stats()
+        res = {"tok_s": e.tokens_out / w, "wall_s": w, "tokens": e.tokens_out,
+               "steps": e.decode_steps, "naive_tok_s": en.tokens_out / wn,
+               "identical_streams": ident, "flips": flips, "launches": launches[path]}
+        if "spec_rounds" in st:
+            res.update(spec_rounds=st["spec_rounds"], spec_drafted=st["spec_drafted"],
+                       spec_accepted=st["spec_accepted"], acceptance=st["spec_acceptance"])
+        if path == "sampled_swap":
+            check(st["swap_outs"] > 0 and st["swap_ins"] == st["swap_outs"],
+                  f"sampled swap counts: {st}")
+            res.update(swap_outs=st["swap_outs"], num_blocks=kw["num_blocks"])
+        if path == "sampled_paged":
+            check(st["prefill_chunks_skipped"] > 0 and st["cow_copies"] >= 1,
+                  f"sampled paged: no prefix hit or no copy-on-write: {st}")
+        out[path] = res
+        print(f"[{path}] {res['tok_s']:.1f} tok/s (naive {res['naive_tok_s']:.1f}), "
+              f"{e.decode_steps} steps"
+              + (f", acceptance {st['spec_accepted']}/{st['spec_drafted']} = "
+                 f"{st['spec_acceptance']:.4f}" if "spec_rounds" in st else ""), flush=True)
+        del d, e, dn, en
+
+    # -- (d) a sampled ModelDraft over the full vocabulary ------------------------
+    md = MODEL_DRAFT
+    dcfg = dataclasses.replace(cfg, n_layers=md["layers"])
+    kw = dict(temperature=md["temperature"], top_k=md["top_k"],
+              sample_seed=md["sample_seed"], draft_depth=PAGED["draft_depth"])
+    rs = [serve.Request(uid=r.uid, prompt=r.prompt, max_new_tokens=md["gen"])
+          for r in reqs[:md["requests"]]]
+
+    def draft_run(impl, m, jit=True):
+        dm = build_model(dcfg, impl=impl, device="cuda")
+        draft = ModelDraft(dm, dm.init(dm.generator(0)), max_batch=SERVE["slots"],
+                           max_seq=SERVE["max_seq"], temperature=md["temperature"],
+                           top_k=md["top_k"], seed=md["sample_seed"])
+        return run_engine(serve, m, params, rs, draft_source=draft, jit=jit, **kw)
+
+    def draft_rerun():
+        return recorded_margins(serve, lambda: streams_of(draft_run("pallas", model,
+                                                                    jit=False)[0]))
+
+    d, e, w = count("sampled_model_draft", lambda: draft_run("pallas", model))
+    check(launches["sampled_model_draft"]["flash_decode_spec"] > 0,
+          "the ModelDraft run did not launch flash_decode_spec")
+    dn, en, wn = draft_run("naive", naive)
+    ident, flips = hold_sampled("sampled_model_draft", streams_of(d), streams_of(dn),
+                                md["sample_seed"], draft_rerun)
+    st = e.stats()
+    out["model_draft"] = {
+        "draft_layers": md["layers"], "target_layers": cfg8.n_layers,
+        "requests": len(rs), "gen": md["gen"], "tok_s": e.tokens_out / w, "wall_s": w,
+        "naive_tok_s": en.tokens_out / wn, "spec_rounds": st["spec_rounds"],
+        "spec_drafted": st["spec_drafted"], "spec_accepted": st["spec_accepted"],
+        "acceptance": st["spec_acceptance"], "identical_streams": ident, "flips": flips,
+        "launches": launches["sampled_model_draft"]}
+    print(f"[sampled_model_draft] {md['layers']}-layer draft, full vocabulary: "
+          f"{out['model_draft']['tok_s']:.1f} tok/s (naive "
+          f"{out['model_draft']['naive_tok_s']:.1f}), acceptance "
+          f"{st['spec_accepted']}/{st['spec_drafted']} = {st['spec_acceptance']:.4f}",
+          flush=True)
+    del model, naive, params, d, e, dn, en
+    free_cuda()
+
+    # -- (e) the PRNG on the card ------------------------------------------------
+    out["prng"] = prng_on_the_card(prng, sampling, cfg.vocab_size)
+    out["settings"] = dict(SAMPLE)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2769,6 +3136,9 @@ def main() -> int:
     free_cuda()
     fl_out = fl_phase()
     lap("phase 18")
+    sampled_out, sampled_launches = sampled_phase(fa, serve, build_model, cfg, reqs,
+                                                  contig_streams)
+    lap("phase 19")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -2853,6 +3223,9 @@ def main() -> int:
         for p, counts in cotenancy_launches.items():  # phase 17
             if counts.get(e["name"], 0):
                 e["launches_by_path"][p] = counts[e["name"]]
+        for p, counts in sampled_launches.items():  # phase 19
+            if counts.get(e["name"], 0):
+                e["launches_by_path"][p] = counts[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     # the decode kernels' mixed-dtype instantiations (phase 3's checks,
     # phase 17's launches): a KV cache in another dtype than the queries'
@@ -2876,6 +3249,7 @@ def main() -> int:
     print(json.dumps({"planner": planner_out}))
     print(json.dumps({"cotenancy": cotenancy_out}, default=str))
     print(json.dumps({"fl": fl_out}))
+    print(json.dumps({"serve_sampled": sampled_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -40,13 +40,24 @@ as second chance); swapped sequences restore — bitwise — into fresh blocks
 when headroom returns, with priority over new admissions. ``shed`` rejects
 the head-of-line request with a retry-after hint instead.
 
+Sampling: greedy by default; ``--temperature/--top-k`` switch the emitted
+stream to seeded sampling with a per-request PRNG key,
+``fold_in(fold_in(PRNGKey(sample_seed), uid), index)`` — JAX's threefry
+streams, reproduced bit for bit by ``repro_torch.prng`` — so a request's
+stream is independent of how it was batched and is the JAX engine's token
+for token. Keys are derived on the host and copied in with the step's other
+inputs; the draw runs inside the decode step (inside its CUDA graph on the
+card), so no (B, V) logits reach the host.
+
 Speculative decoding (``--draft-depth k``, ``--draft-source``): a draft
 source (``repro_torch.spec.draft``) proposes k cheap tokens per request,
 one multi-token verify pass scores the whole window, and the engine emits
 the accepted prefix plus one non-draft token per round. Greedy verification
-makes it token-identical to non-speculative decoding. Rollback is pure
-cache_len bookkeeping — rejected positions keep stale KV, masked dead by
-the ragged-length kernels and overwritten next round.
+makes it token-identical to non-speculative decoding; sampled mode is
+distribution-faithful rejection sampling (``spec.verify.rejection_verify``,
+on the card) on the same fold_in(seed, uid, index) streams. Rollback is
+pure cache_len bookkeeping — rejected positions keep stale KV, masked dead
+by the ragged-length kernels and overwritten next round.
 
 ``--attn-impl pallas`` routes prefill attention through the flash forward
 kernel (contig) and decode attention through the flash-decode kernels
@@ -65,12 +76,12 @@ under f32 weights (``set_kv_dtype("bfloat16")``, the bottom serving rung)
 runs the decode kernels' mixed-dtype instantiations: f32 queries over a
 bf16 cache, computed in f32.
 
-Not ported: sampling (``temperature > 0``), telemetry spans and the
-lockstep loop; each raises where it is asked for.
+Not ported: telemetry spans and the lockstep loop.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-      --batch 8 --attn-impl pallas [--kv-layout paged] [--draft-depth 3]
+      --batch 8 --attn-impl pallas [--kv-layout paged] [--draft-depth 3] \\
+      [--temperature 0.9 --top-k 32 --sample-seed 1]
 """
 from __future__ import annotations
 
@@ -84,6 +95,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention
 from repro_torch.kernels.backend import auto_decode_impl, resolve_device
@@ -91,11 +103,11 @@ from repro_torch.launch.steps import (build_decode_step,
                                       build_paged_decode_step,
                                       build_paged_prefill_step,
                                       build_paged_spec_decode_step,
-                                      build_prefill_step,
+                                      build_prefill_step, build_sampler,
                                       build_spec_decode_step)
 from repro_torch.models.registry import build_model, rebuild_model
 from repro_torch.paging import BlockPoolExhausted, PagedKVCache
-from repro_torch.spec.verify import greedy_verify
+from repro_torch.spec.verify import greedy_verify, rejection_verify
 
 
 @dataclasses.dataclass
@@ -145,11 +157,6 @@ class SwappedSeq:
     swapped_at: int  # engine decode_steps at swap-out (FIFO restore order)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to repro_torch's serve "
-                              f"engine yet")
-
-
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over a model's KV-cache decode path."""
 
@@ -157,6 +164,7 @@ class ContinuousBatchingEngine:
                  eos_id: Optional[int] = None, cache_dtype=torch.float32,
                  kv_layout: str = "contig", block_size: int = 16,
                  num_blocks: Optional[int] = None, temperature: float = 0.0,
+                 top_k: int = 0, sample_seed: int = 0,
                  bucket_prompts: bool = False,
                  admission_policy: str = "serialize",
                  max_queue: Optional[int] = None, prefix_cache: bool = True,
@@ -173,8 +181,6 @@ class ContinuousBatchingEngine:
         if admission_policy == "swap" and kv_layout != "paged":
             raise ValueError("admission_policy='swap' needs the paged layout "
                              "(there are no blocks to evict under contig)")
-        if temperature > 0.0:
-            _not_ported("sampling (temperature > 0)")
         self.model = model
         self.params = params
         self.device = model.device
@@ -248,6 +254,14 @@ class ContinuousBatchingEngine:
         self.spec_drafted = 0
         self.spec_accepted = 0
 
+        # sampling: one draw a slot from its fold_in(seed, uid, index) key
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self._sampler = None
+        if self.temperature > 0.0:
+            self._sampler = build_sampler(self.temperature, self.top_k)
+            self._base_key = prng.PRNGKey(sample_seed)
+
         # device buffers of the steps' per-step inputs, by name and shape
         # (_dev): fixed addresses, filled by copy_ through pinned staging
         self._bufs: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -285,14 +299,16 @@ class ContinuousBatchingEngine:
         Steps built before are dropped, and their graphs with them."""
         self._prefill = build_prefill_step(model)
         if self.kv is not None:
-            self._decode = build_paged_decode_step(model, jit=self.jit)
+            self._decode = build_paged_decode_step(model, jit=self.jit,
+                                                   sampler=self._sampler)
             self._prefill_chunk = build_paged_prefill_step(model)
             self._prefill_chunk_ro = build_paged_prefill_step(model,
                                                               write=False)
             self._spec_decode = build_paged_spec_decode_step(model,
                                                              jit=self.jit)
         else:
-            self._decode = build_decode_step(model, jit=self.jit)
+            self._decode = build_decode_step(model, jit=self.jit,
+                                             sampler=self._sampler)
             self._spec_decode = build_spec_decode_step(model, jit=self.jit)
 
     # -- request lifecycle -------------------------------------------------
@@ -496,6 +512,33 @@ class ContinuousBatchingEngine:
             L = 1 << (max(L, 1) - 1).bit_length()
         return min(L, self.max_seq)
 
+    def _stream_keys(self, n: int = 0) -> np.ndarray:
+        """Every slot's sampling key, ``fold_in(fold_in(PRNGKey(seed), uid),
+        index)`` with index the count of tokens the slot has emitted (an
+        idle slot takes uid 0, as in the reference): (B, 2), or (B, n, 2)
+        for the n emission indices a verify window may fill. Host numpy:
+        the keys reach the device with the step's other inputs."""
+        uids = np.asarray([0 if u is None else u for u in self.slot_uid],
+                          np.int64)
+        idxs = np.asarray([len(g) for g in self.generated], np.int64)
+        if n:
+            uids = np.broadcast_to(uids[:, None], (self.max_batch, n))
+            idxs = idxs[:, None] + np.arange(n, dtype=np.int64)[None]
+        return prng.fold_in(prng.fold_in(self._base_key, uids), idxs)
+
+    def _pick_token(self, logits_row, uid: int, index: int) -> int:
+        """logits_row: (V,) on the device. Greedy unless a sampler is
+        configured; the draw runs on the logits' device.
+
+        Sampling keys are a pure function of (seed, uid, index), so a
+        request's sampled stream is independent of slot placement and batch
+        composition."""
+        if self._sampler is None:
+            return int(logits_row.argmax())
+        key = prng.fold_in(prng.fold_in(self._base_key, uid), index)
+        return int(self._sampler(logits_row[None], torch.as_tensor(
+            key[None], device=logits_row.device))[0])
+
     def _admit(self, slot: int, req: Request) -> None:
         P = len(req.prompt)
         if self.kv is not None:
@@ -512,7 +555,7 @@ class ContinuousBatchingEngine:
             logits, pcache = self._prefill(self.params, batch)
             for name, buf in self.cache.items():  # in-place splice into the slot
                 buf[:, slot:slot + 1, :Lp] = pcache[name].to(buf.dtype)
-        first = int(logits[0, -1].argmax())
+        first = self._pick_token(logits[0, -1], req.uid, 0)
         self.slot_uid[slot] = req.uid
         self.slot_budget[slot] = req.max_new_tokens
         self.cache_len[slot] = P
@@ -815,16 +858,20 @@ class ContinuousBatchingEngine:
         k = self._spec_k(active)
         if k >= 1:
             return self._step_speculative(active, k)
+        # a sampled step draws inside itself, under each slot's stream key
+        keys = () if self._sampler is None else \
+            (self._dev("keys", self._stream_keys()),)
         if self.kv is not None:
             self._append_positions(active, 1)
             self._ship_dirty_tables()
             next_tok, _, self.cache = self._decode(
                 self.params, self.cache, self._dev("tokens", self.tokens),
-                self._dev("cache_len", self.cache_len), self._dev_tables)
+                self._dev("cache_len", self.cache_len), self._dev_tables,
+                *keys)
         else:
             next_tok, _, self.cache = self._decode(
                 self.params, self.cache, self._dev("tokens", self.tokens),
-                self._dev("cache_len", self.cache_len))
+                self._dev("cache_len", self.cache_len), *keys)
         self._note_compiled(self._decode)
         next_np = next_tok.cpu().numpy()
         self.decode_steps += 1
@@ -854,13 +901,22 @@ class ContinuousBatchingEngine:
         Rollback is pure cache_len bookkeeping: the verify pass wrote KV for
         every window position, but cache_len only advances over the emitted
         tokens — rejected positions' KV stays resident, masked dead by the
-        ragged-length kernels, and is overwritten by the next round."""
+        ragged-length kernels, and is overwritten by the next round. Greedy
+        verification makes the emitted stream token-identical to one-token
+        greedy decode; sampled mode is distribution-faithful rejection
+        sampling on the engine's fold_in(seed, uid, index) streams."""
         S = k + 1
-        drafts, _ = self.draft.propose(active, k)
+        drafts, dprobs = self.draft.propose(active, k)
         win = np.zeros((self.max_batch, S), np.int32)
         win[:, 0] = self.tokens[:, 0]
+        probs_b = None
+        if dprobs is not None:
+            probs_b = np.zeros((self.max_batch, k, dprobs.shape[-1]),
+                               np.float32)
         for row, slot in enumerate(active):
             win[slot, 1:] = drafts[row]
+            if probs_b is not None:
+                probs_b[slot] = dprobs[row]
         if self.kv is not None:
             self._append_positions(active, S)
             self._ship_dirty_tables()
@@ -873,8 +929,16 @@ class ContinuousBatchingEngine:
                 self._dev("cache_len", self.cache_len))
         self._note_compiled(self._spec_decode)
         # the compiled step's logits are its graph's buffer: verified here,
-        # before the next call overwrites them
-        toks, n_emit = greedy_verify(logits, self._dev("drafts", win[:, 1:]))
+        # on the device, before the next call overwrites them
+        if self._sampler is None:
+            toks, n_emit = greedy_verify(logits,
+                                         self._dev("drafts", win[:, 1:]))
+        else:
+            toks, n_emit = rejection_verify(
+                logits, self._dev("drafts", win[:, 1:]),
+                None if probs_b is None else self._dev("draft_probs", probs_b),
+                self._dev("spec_keys", self._stream_keys(S)),
+                temperature=self.temperature, top_k=self.top_k)
         tok_np = toks.cpu().numpy()
         n_np = n_emit.cpu().numpy()
         self.decode_steps += 1
@@ -1038,6 +1102,11 @@ def main(argv=None):
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="paged layout: physical blocks in the pool "
                          "(default: contiguous-equivalent capacity)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k filter for sampling (0 = full vocab)")
+    ap.add_argument("--sample-seed", type=int, default=0)
     ap.add_argument("--admission-policy", default="serialize",
                     choices=("serialize", "shed", "swap"),
                     help="overload behavior: serialize queues behind the "
@@ -1085,14 +1154,16 @@ def main(argv=None):
     draft = None
     if args.draft_depth > 0:
         from repro_torch.spec.draft import build_draft_source
-        draft = build_draft_source(args.draft_source, target_cfg=cfg,
-                                   max_batch=args.batch, max_seq=max_seq,
-                                   device=device)
+        draft = build_draft_source(
+            args.draft_source, target_cfg=cfg, max_batch=args.batch,
+            max_seq=max_seq, temperature=args.temperature, top_k=args.top_k,
+            seed=args.sample_seed, device=device)
     engine = ContinuousBatchingEngine(
         model, params, max_batch=args.batch, max_seq=max_seq,
         eos_id=args.eos_id, kv_layout=args.kv_layout,
         block_size=args.block_size, num_blocks=args.kv_blocks,
-        bucket_prompts=args.bucket_prompts,
+        temperature=args.temperature, top_k=args.top_k,
+        sample_seed=args.sample_seed, bucket_prompts=args.bucket_prompts,
         admission_policy=args.admission_policy,
         prefix_cache=not args.no_prefix_cache, swap_grace=args.swap_grace,
         draft_depth=args.draft_depth, draft_source=draft)

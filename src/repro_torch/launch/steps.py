@@ -429,7 +429,43 @@ def _compiled(fn, name: str, jit: bool):
     return CompiledStep(fn, name, state_argnums=(0, 1)) if jit else fn
 
 
-def build_decode_step(model: Model, *, jit: bool = True, greedy: bool = True):
+def build_sampler(temperature: float, top_k: int = 0):
+    """Returns f(logits (B, V), keys (B, 2) int64) -> (B,) sampled int32 ids.
+
+    Temperature scales the logits; ``top_k > 0`` masks everything below the
+    k-th logit before sampling — both via the shared masking in
+    :mod:`repro_torch.launch.sampling`, which the speculative verifier also
+    uses (accept-test and fallback-sample distributions cannot drift). Keys
+    are per-sequence PRNG keys (one row per slot), so sampling stays
+    independent of batch composition — the serve engine derives them per
+    request uid and generation index, which makes a request's sampled
+    stream identical however it was batched. The draw runs on the logits'
+    device with no host sync, so a compiled decode step captures it.
+    """
+    from repro_torch.launch.sampling import categorical
+
+    if temperature <= 0.0:
+        raise ValueError("build_sampler needs temperature > 0; greedy "
+                         "decoding is the decode step's argmax")
+
+    def sample(logits, keys):
+        return categorical(keys, logits, temperature, top_k)
+
+    return sample
+
+
+def _next_token(logits, greedy: bool, sampler, keys):
+    """The decode step's (B, 1) int32 pick from its last logits row: the
+    sampler's draw under ``keys``, the argmax, or None."""
+    if sampler is not None:
+        return sampler(logits[:, -1, :], keys)[:, None]
+    if greedy:
+        return logits[:, -1, :].argmax(-1).to(torch.int32)[:, None]
+    return None
+
+
+def build_decode_step(model: Model, *, jit: bool = True, greedy: bool = True,
+                      sampler: Optional[Callable] = None):
     """One-token decode step: (params, cache, tokens, cache_len) ->
     (next_tok (B,1) int32 on the device or None, logits, cache).
 
@@ -438,36 +474,40 @@ def build_decode_step(model: Model, *, jit: bool = True, greedy: bool = True):
     object. ``cache_len`` may be a scalar (lockstep) or (B,) vector
     (continuous batching). ``greedy=False`` skips the argmax.
 
+    ``sampler`` (:func:`build_sampler`): the step takes one more argument,
+    the (B, 2) keys, and next_tok is the sampler's draw from the last
+    logits row, made inside the step (so inside the captured graph: the
+    (B, V) logits never reach the host). The reference's sampled engine
+    draws in a jitted call of its own after the step.
+
     ``jit=True``: a :class:`CompiledStep` (params and cache captured by
-    address; tokens and cache_len copied in). Its next_tok is the caller's;
-    its logits are the graph's buffer, valid until the next call.
+    address; tokens, cache_len and keys copied in). Its next_tok is the
+    caller's; its logits are the graph's buffer, valid until the next call.
     """
     @torch.inference_mode()
-    def decode_step(params, cache, tokens, cache_len):
+    def decode_step(params, cache, tokens, cache_len, keys=None):
         logits, cache = model.decode_step(params, cache, tokens, cache_len)
-        next_tok = logits[:, -1, :].argmax(-1).to(torch.int32)[:, None] \
-            if greedy else None
-        return next_tok, logits, cache
+        return _next_token(logits, greedy, sampler, keys), logits, cache
 
     return _compiled(decode_step, "decode_step", jit)
 
 
 def build_paged_decode_step(model: Model, *, jit: bool = True,
-                            greedy: bool = True):
+                            greedy: bool = True,
+                            sampler: Optional[Callable] = None):
     """One-token decode step over a paged KV cache.
 
     Same contract as :func:`build_decode_step` (pools updated in place,
-    ``greedy=False`` skips the argmax) with one extra argument: the (B, T)
-    int32 block table routing each sequence's virtual cache positions to
-    physical pool blocks (an input of the compiled step, copied in).
+    ``greedy=False`` skips the argmax, ``sampler`` draws inside the step
+    under a last keys argument) with one extra argument: the (B, T) int32
+    block table routing each sequence's virtual cache positions to physical
+    pool blocks (an input of the compiled step, copied in).
     """
     @torch.inference_mode()
-    def decode_step(params, cache, tokens, cache_len, block_table):
+    def decode_step(params, cache, tokens, cache_len, block_table, keys=None):
         logits, cache = model.paged_decode_step(params, cache, tokens,
                                                 cache_len, block_table)
-        next_tok = logits[:, -1, :].argmax(-1).to(torch.int32)[:, None] \
-            if greedy else None
-        return next_tok, logits, cache
+        return _next_token(logits, greedy, sampler, keys), logits, cache
 
     return _compiled(decode_step, "paged_decode_step", jit)
 

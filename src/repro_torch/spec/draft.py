@@ -13,8 +13,9 @@ Two implementations behind one protocol:
   port's contiguous decode step. Rollback mirrors the target engine's:
   accepted proposal KVs are kept (they were computed from the very tokens
   that got accepted), the rest is masked dead by cache_len bookkeeping and
-  overwritten in place next round. Proposals are greedy only: the
-  reference's sampled proposals (``temperature > 0``) are not ported.
+  overwritten in place next round. Proposals are the draft's argmax, or
+  with ``temperature > 0`` draws from its own temperature/top-k
+  distribution, which the rejection test takes as p.
 
 Draft sources are host-side engine components: slots, numpy token lists,
 and explicit admit/commit/release lifecycle calls from the serve engine.
@@ -116,8 +117,6 @@ class NGramDraft:
         return out, None
 
 
-
-
 class ModelDraft:
     """Small registry model running k steps ahead of the target.
 
@@ -131,8 +130,14 @@ class ModelDraft:
     by cache_len and overwritten next round — the same rollback-by-
     bookkeeping the target engine uses.
 
-    Proposals are the draft's argmax (one-hot p, probs=None);
-    ``temperature > 0`` raises.
+    With ``temperature > 0`` proposals are sampled from the draft's own
+    temperature/top-k distribution (returned as the rejection test's p);
+    greedy proposals are argmax with one-hot p (probs=None). The draft's
+    next-token logits stay on its device: the argmax, or the distribution
+    ``launch.sampling.sample_probs`` shapes, is computed there, and the
+    draw is the reference's own numpy call on those float32 probs
+    (``np.random.default_rng(seed).choice``), so the port's proposals are
+    the reference's but where two cumulative sums straddle the uniform.
     """
 
     def __init__(self, model, params, *, max_batch: int, max_seq: int,
@@ -140,14 +145,12 @@ class ModelDraft:
                  seed: int = 0):
         from repro_torch.launch.steps import build_decode_step
 
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "sampled ModelDraft proposals (temperature > 0) are not "
-                "ported to repro_torch; greedy proposals are")
         self.model = model
         self.params = params
         self.max_batch = int(max_batch)
         self.max_seq = int(max_seq)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
         self.vocab_size = int(model.cfg.vocab_size)
         self._step = build_decode_step(model, greedy=False)
         self._cache = model.init_cache(self.max_batch, self.max_seq,
@@ -155,8 +158,10 @@ class ModelDraft:
         self.cache_len = np.zeros(self.max_batch, np.int32)
         self._pending: dict = {}
         self._base: dict = {}
-        self._next_logits = np.zeros((self.max_batch, self.vocab_size),
-                                     np.float32)
+        self._next_logits = torch.zeros((self.max_batch, self.vocab_size),
+                                        dtype=torch.float32,
+                                        device=model.device)
+        self._rng = np.random.default_rng(seed)
 
     def admit(self, slot, prompt_tokens):
         self.cache_len[slot] = 0
@@ -185,9 +190,9 @@ class ModelDraft:
         _, logits, self._cache = self._step(
             self.params, self._cache, torch.as_tensor(toks, device=dev),
             torch.as_tensor(self.cache_len, device=dev))
-        rows = logits[:, -1, :].float().cpu().numpy()
+        fed = torch.as_tensor(list(feed), device=dev)
+        self._next_logits[fed] = logits[fed, -1, :].float()
         for slot in feed:
-            self._next_logits[slot] = rows[slot]
             self.cache_len[slot] += 1
 
     def _catch_up(self, slots):
@@ -198,19 +203,37 @@ class ModelDraft:
                 return
             self._advance(feed)
 
+    def _pick(self, slots):
+        """Next proposal per slot from its current next-token logits.
+        Returns (tokens {slot: tok}, probs (n, V) float32 or None)."""
+        rows = self._next_logits[torch.as_tensor(slots,
+                                                 device=self.model.device)]
+        if self.temperature <= 0.0:
+            toks = rows.argmax(-1).to(torch.int32).cpu().numpy()
+            return dict(zip(slots, toks)), None
+        from repro_torch.launch.sampling import sample_probs
+        probs = sample_probs(rows, self.temperature, self.top_k).cpu().numpy()
+        toks = np.array([self._rng.choice(self.vocab_size, p=p / p.sum())
+                         for p in probs], np.int32)
+        return dict(zip(slots, toks)), probs
+
     def propose(self, slots, k):
         slots = list(slots)
         self._catch_up(slots)
         for s in slots:
             self._base[s] = int(self.cache_len[s])
         drafts = np.zeros((len(slots), k), np.int32)
+        probs = (np.zeros((len(slots), k, self.vocab_size), np.float32)
+                 if self.temperature > 0.0 else None)
         for j in range(k):
-            toks = self._next_logits[slots].argmax(-1).astype(np.int32)
-            feed = dict(zip(slots, toks))
-            drafts[:, j] = toks
+            feed, p = self._pick(slots)
+            for row, s in enumerate(slots):
+                drafts[row, j] = feed[s]
+                if probs is not None:
+                    probs[row, j] = p[row]
             if j < k - 1:  # the last proposal is never ingested here
                 self._advance(feed)
-        return drafts, None
+        return drafts, probs
 
 
 def build_draft_source(name: str, *, target_cfg=None, max_batch: int = 1,

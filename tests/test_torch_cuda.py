@@ -1145,6 +1145,82 @@ def test_compiled_serve_matches_eager(freed, width, layout, policy, depth):
     assert j["step"]["last_call"] == "replay"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,policy,depth", [
+    ("contig", "serialize", 0), ("paged", "serialize", 0), ("paged", "swap", 0),
+    ("contig", "serialize", 4), ("paged", "serialize", 4)])
+def test_compiled_sampled_serve_matches_eager(freed, monkeypatch, layout, policy,
+                                              depth):
+    """Sampled serving (temperature 0.9, top-k 32) at the reduced width, with
+    the steps captured and eagerly: token-identical streams and launch
+    counts, each step replayed, the decode graphs taking the (8, 2) int64
+    keys as an input, and no (B, V) logits brought to the host
+    (``Tensor.cpu`` watched). Temperature 5 with top-k 1 gives the greedy
+    streams, captured."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    dev = _device()
+    cfg = _llama("reduced")
+    model = build_model(cfg, impl="pallas", device=dev)
+    params = model.init(model.generator(0))
+    kw = dict(max_batch=8, max_seq=64, kv_layout=layout, block_size=4,
+              draft_depth=depth, admission_policy=policy)
+    if policy == "swap":
+        kw["num_blocks"] = 40
+    moved, real_cpu = [], torch.Tensor.cpu
+
+    def cpu(self, *a, **k):
+        moved.append(tuple(self.shape))
+        return real_cpu(self, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    runs = {}
+    for name, jit, sample in (("eager", False, dict(temperature=0.9, top_k=32)),
+                              ("captured", True, dict(temperature=0.9, top_k=32)),
+                              ("greedy", True, {}),
+                              ("top1", True, dict(temperature=5.0, top_k=1))):
+        engine = serve.ContinuousBatchingEngine(model, params, jit=jit,
+                                                sample_seed=1, **sample, **kw)
+        fa.reset_launches()
+        done = engine.run(_serve_requests(cfg, 12))
+        step = engine._spec_decode if depth else engine._decode
+        runs[name] = dict(streams={u: f.tokens for u, f in done.items()},
+                          launches=fa.all_launches(), stats=engine.stats(),
+                          captures=getattr(step, "captures", None),
+                          replays=getattr(step, "replays", None),
+                          sigs=list(getattr(engine._decode, "_graphs", ())))
+        del engine, step
+    e, j = runs["eager"], runs["captured"]
+    assert j["streams"] == e["streams"] != runs["greedy"]["streams"]
+    assert runs["top1"]["streams"] == runs["greedy"]["streams"]
+    assert j["launches"] == e["launches"] and sum(j["launches"].values()) > 0
+    assert j["captures"] >= 1 and j["replays"] > j["captures"]
+    if not depth:  # the sampled decode graph's keys input
+        assert any(k[:3] == ("tensor", (8, 2), torch.int64)
+                   for sig in j["sigs"] for k in sig[1]), j["sigs"]
+    if policy == "swap":
+        assert j["stats"]["swap_outs"] > 0
+    assert not [s for s in moved if s and s[-1] == cfg.vocab_size], moved
+
+
+@pytest.mark.cuda
+def test_prng_on_the_card_matches_the_cpu():
+    """(8, 128256) random bits and uniforms on the card equal the CPU's from
+    the same keys, bit for bit; Gumbel noise within 1e-6."""
+    import numpy as np
+    from repro_torch import prng
+    dev = _device()
+    keys = torch.as_tensor(prng.fold_in(prng.fold_in(prng.PRNGKey(3), np.arange(8)),
+                                        np.arange(8) * 7))
+    V = 128256
+    assert torch.equal(prng.random_bits(keys.to(dev), (V,)).cpu(),
+                       prng.random_bits(keys, (V,)))
+    assert torch.equal(prng.uniform(keys.to(dev), (V,)).cpu(),
+                       prng.uniform(keys, (V,)))
+    torch.testing.assert_close(prng.gumbel(keys.to(dev), (V,)).cpu(),
+                               prng.gumbel(keys, (V,)), rtol=1e-6, atol=1e-6)
+
+
 def _recording_optimizer():
     """An optimizer that copies each step's gradients into its state and
     updates nothing: a captured train step's gradients, read back."""

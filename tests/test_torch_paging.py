@@ -461,12 +461,17 @@ def test_engine_dirty_rows_ship_only_changes(params):
 
 def test_engine_refuses_what_is_not_ported(params):
     model = build_model(CFG, impl="naive", device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tserve.ContinuousBatchingEngine(model, params[1], max_batch=1,
-                                        max_seq=16, temperature=0.7)
-    # deadlines, drain, hold_blocks and the rung knobs are ported now
+    # sampling is ported now (tests/test_torch_sampling.py holds its streams
+    # to the reference's): a sampled engine builds and serves, paged too
+    sampled = tserve.ContinuousBatchingEngine(model, params[1], max_batch=1,
+                                              max_seq=16, temperature=0.7,
+                                              kv_layout="paged")
+    done = sampled.run([tserve.Request(uid=0, prompt=np.arange(3, dtype=np.int32),
+                                       max_new_tokens=3)])
+    assert len(done[0].tokens) == 3 and sampled._sampler is not None
+    # deadlines, drain, hold_blocks and the rung knobs are ported too
     # (tests/test_torch_robustness.py and tests/test_torch_arbitration.py
-    # hold them to the reference); sampling is the one refusal left
+    # hold them to the reference)
     engine = tserve.ContinuousBatchingEngine(model, params[1], max_batch=1,
                                              max_seq=16, kv_layout="paged")
     assert engine.submit(tserve.Request(uid=0, prompt=np.arange(3, dtype=np.int32),

@@ -283,9 +283,14 @@ def test_model_draft_rollback_matches_jax(tiny):
             d.commit(0, [int(jdr[0, 0])], 99)
             d.commit(1, [], 7)
         assert td.cache_len.tolist() == jd.cache_len.tolist()
-    with pytest.raises(NotImplementedError, match="sampled"):
-        tdraft.ModelDraft(td.model, tparams, max_batch=1, max_seq=8,
-                          temperature=0.5)
+    # sampled proposals are ported (tests/test_torch_sampling.py holds them
+    # to the reference's): each comes with its draft distribution p
+    sd = tdraft.ModelDraft(td.model, tparams, max_batch=1, max_seq=8,
+                           temperature=0.5)
+    sd.admit(0, [3, 4])
+    sdr, sp = sd.propose([0], 2)
+    assert sdr.shape == (1, 2) and sp.shape == (1, 2, TINY.vocab_size)
+    np.testing.assert_allclose(sp.sum(-1), 1.0, rtol=1e-5)
     with pytest.raises(ValueError, match="unknown draft source"):
         tdraft.build_draft_source("no-such-arch", device="cpu")
 
