@@ -200,6 +200,36 @@ Phases (any failure raises and the script exits non-zero):
    of the requests, 16 tokens each, held likewise. (e) ``prng`` on the
    card: (8, 128256) random bits and uniforms equal the CPU's, Gumbel noise
    within 1e-6, the draws equal but at a near tie.
+20. The dense family at full width. First the attention kernels at
+   nemotron-4-15b's geometry (hd 128, G = 6; the verify at S*G = 30) in
+   bf16 without lowp and in f32 against their plain versions, timed beside
+   SDPA and their bounds (``check_dense_kernels``). (a) nemotron-4-15b (32
+   layers, d_model 6144, 48/8 heads, untied 256000-token head, LayerNorm,
+   squared ReLU) with bf16 weights (``param_dtype``, 31.3 GB) and a bf16 KV
+   cache, ``ContinuousBatchingEngine(attn_impl="pallas")`` captured: 4
+   slots, 8 requests of 192-320 prompt tokens and 16 greedy tokens, max_seq
+   512; contiguous, paged (blocks of 16, phase 9's shared prefixes) and
+   speculative (n-gram, depth 4). flash_fwd (not on the paged path, whose
+   prefill is plain) and each path's decode kernel launched; each path's
+   streams held to the same requests through the plain path under phase
+   5's rule, where a bf16 model's bf16 logits admit a margin of one bf16
+   unit of the top logit (their resolution; ``same_streams``), every
+   divergence and its margin recorded; tok/s, peak memory and a captured
+   decode step's host and device ms. (b) granite-3-2b (40 layers, d_model
+   2048, tied 49155-token head), f32: first-step loss and gradients under
+   remat none, dots and full (eager autograd) within LOSS_RTOL and
+   GRAD_RTOL of none's, and under full the kernels against the plain path
+   likewise; the memory the forward keeps for the backward, and the
+   forward's peak memory, strictly ordered none > dots > full (the
+   backward's peak, which stacks each leaf's gradients at its end, and a
+   whole step's, which adam's update sets, are printed). Then ``TrainSession``
+   on the f32 ``full`` rung (adam, lr 3e-4, batch 4 x 512, 4 steps: eager,
+   capture, two replays) under each policy in turn, each policy's graphs
+   freed before the next: losses within LOSS_RTOL of none's (whether they
+   are bitwise equal is recorded), flash_fwd launched twice a layer and
+   step under remat (the recomputed forward), the backward kernels once;
+   then the bf16 ``lean`` rung under full. Prints each run's step ms and
+   peak memory (a whole step's, which adam's update sets).
 
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
@@ -226,8 +256,10 @@ all four, bf16 q over an f32 cache in flash_decode, at the serve shape.
 Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
 ...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
 ``{"rmsnorm": ...}``, ``{"planner": ...}``, ``{"cotenancy": ...}``,
-``{"fl": ...}``, ``{"serve_sampled": ...}`` and ``{"kernels": [...]}`` (all
-ten kernels, with phase 19's launches on the five it runs, then the five
+``{"fl": ...}``, ``{"serve_sampled": ...}``, ``{"dense": ...}`` and
+``{"kernels": [...]}`` (all ten kernels, with phase 19's and phase 20's
+launches on those they run and phase 20's checks at nemotron-4-15b's
+geometry appended to their checks, then the five
 mixed-dtype decode entries with their phase-17 launches), the card's name
 and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device":
@@ -336,30 +368,33 @@ def max_err_bf16_out(got, want, tol) -> tuple[float, bool]:
 # ---------------------------------------------------------------------------
 
 
-def check_flash_fwd(fa, ref):
+FWD_CHECKS = [(1, 32, 512, 64, torch.float32, False),  # B, H, S, hd, dtype, lowp
+              (1, 32, 509, 64, torch.float32, False),
+              (1, 32, 256, 64, torch.float32, False),
+              (1, 32, 512, 64, torch.float32, True),
+              (1, 32, 512, 64, torch.bfloat16, True),
+              (1, 32, 509, 64, torch.bfloat16, True),
+              (1, 32, 512, 64, torch.bfloat16, False),
+              (1, 32, 509, 64, torch.bfloat16, False),
+              (4, 32, 512, 64, torch.float32, False),   # the train step's
+              (4, 32, 512, 64, torch.bfloat16, True),
+              (4, 32, 512, 64, torch.bfloat16, False)]  # the lean rung's
+
+
+def check_flash_fwd(fa, ref, cases=None):
     """Prefill attention: B=1, H=32, hd=64, causal, at S=512, a prime S near
     it and S=256 (inside the serve run's prompt range); then the train
     step's B=4, S=512. In its four modes: f32 without and with lowp (the
     FFMA kernel), bf16 with lowp and bf16 without it (the tensor-core
     kernel, p split into bf16 pairs: o within SPLIT_TOL of the plain
     version's f32 result beside its own rounding to bf16, lse within
-    SPLIT_TOL). Each f32 check records the FFMA kernel's groups of warps a
+    SPLIT_TOL). ``cases`` replaces ``FWD_CHECKS`` (phase 20: nemotron-4-15b's
+    prefill). Each f32 check records the FFMA kernel's groups of warps a
     block, where the tree's wrapper has that plan."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(1)
     checks = []
-    for B, S, dtype, lowp in [(1, 512, torch.float32, False),
-                              (1, 509, torch.float32, False),
-                              (1, 256, torch.float32, False),
-                              (1, 512, torch.float32, True),
-                              (1, 512, torch.bfloat16, True),
-                              (1, 509, torch.bfloat16, True),
-                              (1, 512, torch.bfloat16, False),
-                              (1, 509, torch.bfloat16, False),
-                              (4, 512, torch.float32, False),   # the train step's
-                              (4, 512, torch.bfloat16, True),
-                              (4, 512, torch.bfloat16, False)]:  # the lean rung's
-        H, hd = 32, 64
+    for B, H, S, hd, dtype, lowp in cases or FWD_CHECKS:
         split = dtype == torch.bfloat16 and not lowp
         q, k, v = (torch.randn(B, H, S, hd, generator=g, device="cuda").to(dtype)
                    for _ in range(3))
@@ -570,9 +605,11 @@ def paged_inputs(g, dtype, B, K, hd, bs, T):
 
 
 def kernel_check(label, got, want, tol, *, ms, plain_ms, library_ms, nbytes,
-                 flops, lowp, **extra):
-    """One kernel-vs-plain comparison with its times and bound."""
-    err, ok = max_err(got, want, tol)
+                 flops, lowp, err_fn=max_err, **extra):
+    """One kernel-vs-plain comparison with its times and bound (``err_fn``:
+    ``max_err_bf16_out`` for a bf16 result held to the plain version's f32
+    one)."""
+    err, ok = err_fn(got, want, tol)
     peak = BF16_FLOPS if lowp else F32_FLOPS
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     c = dict(extra, lowp=lowp, max_abs_err=err, tol=tol["atol"], ok=ok, ms=ms,
@@ -966,11 +1003,14 @@ def make_requests(serve, vocab):
             for u in range(SERVE["requests"])]
 
 
+def engine_args(engine_kw) -> dict:
+    """The engine's keyword arguments: SERVE's slots and positions unless
+    ``engine_kw`` sets ``max_batch`` / ``max_seq`` (phase 20)."""
+    return dict(dict(max_batch=SERVE["slots"], max_seq=SERVE["max_seq"]), **engine_kw)
+
+
 def run_engine(serve, model, params, reqs, **engine_kw):
-    engine = serve.ContinuousBatchingEngine(model, params,
-                                            max_batch=SERVE["slots"],
-                                            max_seq=SERVE["max_seq"],
-                                            **engine_kw)
+    engine = serve.ContinuousBatchingEngine(model, params, **engine_args(engine_kw))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = engine.run([serve.Request(uid=r.uid, prompt=r.prompt,
@@ -994,11 +1034,8 @@ def profile_decode(serve, model, params, reqs, steps: int = 4, label="",
     eager triple after it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    engine = serve.ContinuousBatchingEngine(model, params,
-                                            max_batch=SERVE["slots"],
-                                            max_seq=SERVE["max_seq"],
-                                            **engine_kw)
-    for r in reqs[:SERVE["slots"]]:
+    engine = serve.ContinuousBatchingEngine(model, params, **engine_args(engine_kw))
+    for r in reqs[:engine.max_batch]:
         engine.submit(serve.Request(uid=r.uid, prompt=r.prompt,
                                     max_new_tokens=budget))
     engine.step()  # admits every slot and runs the first decode
@@ -1121,7 +1158,8 @@ def profile_paged_prefill(serve, model, params, req, **engine_kw):
 def top2_margin(model, params, prompt, tokens, index, cache_dtype=torch.float32):
     """The plain path's top-2 logit margin where it chose ``tokens[index]``,
     replaying the request alone (prefill, then greedy decode over a
-    ``cache_dtype`` cache)."""
+    ``cache_dtype`` cache), and one unit in the last place of the logits'
+    dtype at the top logit: (margin, unit)."""
     logits, pcache = model.prefill(params, {"tokens": torch.as_tensor(
         prompt, device="cuda")[None]})
     cache = model.init_cache(1, SERVE["max_seq"], cache_dtype)
@@ -1131,7 +1169,9 @@ def top2_margin(model, params, prompt, tokens, index, cache_dtype=torch.float32)
         tok = torch.tensor([[tokens[i]]], dtype=torch.int32, device="cuda")
         logits, cache = model.decode_step(params, cache, tok, len(prompt) + i)
     top = logits[0, -1].float().topk(2).values
-    return float(top[0] - top[1])
+    _, e = torch.frexp(top[0].abs())  # |top| in [2^(e-1), 2^e)
+    unit = torch.finfo(logits.dtype).eps * 2.0 ** (int(e) - 1)
+    return float(top[0] - top[1]), unit
 
 
 def shared_prefix_requests(serve, reqs):
@@ -1152,10 +1192,15 @@ def shared_prefix_requests(serve, reqs):
     return out
 
 
-def same_streams(label, got, want, naive, params, reqs, cache_dtype=torch.float32):
+def same_streams(label, got, want, naive, params, reqs, cache_dtype=torch.float32,
+                 divergences=None):
     """Phase 5's rule: streams token-identical, or diverging only where the
     plain path's top-2 logit margin (over a ``cache_dtype`` cache) is below
-    LOGIT_TOL. Returns the number of identical streams."""
+    LOGIT_TOL, or, where the logits are bf16 (bf16 weights, phase 20), at
+    most one bf16 unit of the top logit: the logits' own resolution, which
+    at |logit| >= 0.25 is above LOGIT_TOL (f32 logits resolve far below it,
+    so there the rule is LOGIT_TOL alone). Appends each divergence to
+    ``divergences``. Returns the number of identical streams."""
     check(sorted(got) == sorted(want), f"{label}: requests missing")
     identical = 0
     by_uid = {r.uid: r for r in reqs}
@@ -1166,11 +1211,15 @@ def same_streams(label, got, want, naive, params, reqs, cache_dtype=torch.float3
             continue
         check(len(a) == len(b), f"{label}: uid {u} has {len(a)} tokens, not {len(b)}")
         i = next(j for j in range(len(a)) if a[j] != b[j])
-        margin = top2_margin(naive, params, by_uid[u].prompt, b, i, cache_dtype)
+        margin, unit = top2_margin(naive, params, by_uid[u].prompt, b, i, cache_dtype)
         print(f"[{label}] uid {u} diverges at token {i}: {a[i]} vs {b[i]}, "
-              f"plain top-2 margin {margin:.3g} (tolerance {LOGIT_TOL})")
-        check(margin < LOGIT_TOL, f"{label}: uid {u} diverges where the margin "
-              f"is {margin}")
+              f"plain top-2 margin {margin:.3g} (tolerance {LOGIT_TOL}, or one "
+              f"unit of the logits' dtype at the top logit: {unit:.3g})")
+        if divergences is not None:
+            divergences.append({"uid": u, "index": i, "got": int(a[i]),
+                                "plain": int(b[i]), "margin": margin, "unit": unit})
+        check(margin < LOGIT_TOL or margin <= unit, f"{label}: uid {u} diverges "
+              f"where the margin is {margin}")
     print(f"[{label}] {identical}/{len(want)} streams token-identical", flush=True)
     return identical
 
@@ -3048,6 +3097,379 @@ def sampled_phase(fa, serve, build_model, cfg, reqs, greedy_streams=None):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the dense family at full width
+# ---------------------------------------------------------------------------
+
+DENSE_SERVE = dict(arch="nemotron-4-15b", slots=4, requests=8, prompt_lo=192,
+                   prompt_hi=320, gen=16, max_seq=512, seed=0)
+DENSE_TRAIN = dict(arch="granite-3-2b", batch=4, seq=512, steps=4, lr=3e-4, seed=0)
+REMATS = ("none", "dots", "full")
+
+
+def dense_requests(serve, vocab):
+    rng = np.random.default_rng(DENSE_SERVE["seed"])
+    return [serve.Request(uid=u, prompt=rng.integers(0, vocab, int(rng.integers(
+        DENSE_SERVE["prompt_lo"], DENSE_SERVE["prompt_hi"] + 1))).astype(np.int32),
+        max_new_tokens=DENSE_SERVE["gen"]) for u in range(DENSE_SERVE["requests"])]
+
+
+def check_dense_kernels(fa, ref, gather, cfg):
+    """The attention kernels at nemotron-4-15b's geometry, in the serve
+    path's mode (bf16 q and cache, dots in f32: no lowp) and in f32: the
+    prefill forward over H = 48 heads of hd 128 (S = 320, the longest
+    prompt), then the three decode kernels at B = 4 slots, K = 8, G = 6
+    (a KV head's second row group of 4 half full), over 512 positions (32
+    blocks of 16), at lengths 0, 193, 320 and 512; the verify at S = 5
+    (draft depth 4: S*G = 30 rows, two row blocks of 24). A bf16 result is
+    held to the plain version's f32 result on the same bf16 values beside
+    half a bf16 unit. Returns {kernel: [checks]}."""
+    import torch.nn.functional as F
+    K, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    out = {"flash_fwd": check_flash_fwd(fa, ref, cases=[
+        (1, cfg.n_heads, DENSE_SERVE["prompt_hi"], hd, torch.bfloat16, False)])}
+    B, bs, S = DENSE_SERVE["slots"], PAGED["block_size"], PAGED["draft_depth"] + 1
+    cap = DENSE_SERVE["max_seq"]
+    T = cap // bs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(20)
+    for name in ("flash_decode", "flash_decode_paged", "flash_decode_spec"):
+        out[name] = []
+        spec, paged = "spec" in name, "paged" in name
+        lens_list = [0, 193, 320, cap - S if spec else cap]
+        lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            qshape = (B, K, S, G, hd) if spec else (B, K, G, hd)
+            q = torch.randn(*qshape, generator=g, device="cuda").to(dtype)
+            if paged:  # a shuffled table over B*T + 1 blocks, one entry past it
+                kp, vp = (torch.randn(B * T + 1, bs, K, hd, generator=g,
+                                      device="cuda").to(dtype) for _ in range(2))
+                table = (torch.randperm(B * T, generator=g, device="cuda") + 1
+                         ).reshape(B, T).to(torch.int32)
+                table[1, 3] = 2 * B * T
+                args = (q, kp, vp, table, lengths)
+                plan = fa.decode_paged_plan(T, bs, B * K * -(-G // fa.DECODE_ROWS), sms)
+            else:
+                kc, vc = (torch.randn(B, cap, K, hd, generator=g, device="cuda").to(dtype)
+                          for _ in range(2))
+                args = (q, kc, vc, lengths)
+                plan = (fa.spec_plan(B, K, S * G, cap // 64, 64, sms) if spec else
+                        fa.decode_plan(cap, B * K * -(-G // fa.DECODE_ROWS), sms))
+            kernel, plain = getattr(fa, name), getattr(ref, "ref_" + name)
+            got = kernel(*args, lowp=False)
+            want = plain(*(a.float() if a.is_floating_point() else a for a in args))
+            torch.cuda.synchronize()
+            rows = S if spec else 1
+            qh = (q.permute(0, 1, 3, 2, 4) if spec else q[:, :, :, None]
+                  ).reshape(B, K * G, rows, hd)
+            limit = (lengths[:, None].long() + (torch.arange(S, device="cuda") + 1
+                                                if spec else 0)).clamp(max=cap)
+            mask = (torch.arange(cap, device="cuda")[None, None, :]
+                    < limit.reshape(B, -1)[:, :, None])[:, None]
+
+            def library():  # (gather, then) one SDPA call with GQA and a mask
+                kh = (gather(kp, table) if paged else kc).transpose(1, 2)
+                vh = (gather(vp, table) if paged else vc).transpose(1, 2)
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                      enable_gqa=True)
+            elt = q.element_size()
+            live = sum(min(n + (S if spec else 0), cap) for n in lens_list)
+            pairs = int(limit.sum()) * K * G
+            nbytes = live * K * 2 * hd * elt + 2 * q.numel() * elt + B * 4 \
+                + (B * T * 4 if paged else 0)
+            bf16 = dtype == torch.bfloat16
+            out[name].append(kernel_check(
+                f"{name} (nemotron, plan {plan[:2]})", got, want,
+                F32_TOL, err_fn=max_err_bf16_out if bf16 else max_err,
+                shape=list(qshape) + ([bs, T] if paged else [cap]), lengths=lens_list,
+                plan=list(plan[:2]), dtype=str(dtype).replace("torch.", ""),
+                ms=time_ms(lambda: kernel(*args, lowp=False)),
+                plain_ms=time_ms(lambda: plain(*args, lowp=False)),
+                library_ms=time_ms(library),
+                library_calls="gather + SDPA, two calls" if paged else "SDPA, one call",
+                nbytes=nbytes, flops=pairs * 4 * hd, lowp=False))
+    return out
+
+
+def dense_serve_phase(fa, serve, build_model, cfg):
+    """Phase 20(a): nemotron-4-15b at full width in bf16 (weights and KV
+    cache) through ``ContinuousBatchingEngine(attn_impl="pallas")``,
+    captured: 4 slots, 8 requests of 192-320 prompt tokens and 16 greedy
+    tokens, max_seq 512; contiguous, paged (blocks of 16, half the requests
+    sharing a 128-token prefix) and speculative (n-gram, depth 4). Each
+    path's streams held to the same requests through the plain path under
+    phase 5's rule (``same_streams``), every divergence's margin recorded.
+    Returns (the JSON object, each path's launch counts)."""
+    bf = torch.bfloat16
+    model = build_model(cfg, impl="pallas", param_dtype=bf, device="cuda")
+    naive = build_model(cfg, impl="naive", param_dtype=bf, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(model.generator(DENSE_SERVE["seed"]))
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in _leaves(params)) / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reqs = dense_requests(serve, cfg.vocab_size)
+    print(f"[dense] serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads (G {cfg.n_heads // cfg.n_kv_heads}), "
+          f"hd {cfg.head_dim}, vocab {cfg.vocab_size} untied, {cfg.norm}, "
+          f"{cfg.activation}; {cfg.param_count() / 1e9:.3f}B params, bf16 weights "
+          f"{weights_gb:.2f} GB (init peak {init_peak_gb:.2f} GB); prompts "
+          f"{[len(r.prompt) for r in reqs]}", flush=True)
+    with torch.inference_mode():  # small-input agreement of the two paths
+        toks = torch.as_tensor(reqs[0].prompt[:64], device="cuda")[None]
+        lk, _ = model.prefill(params, {"tokens": toks})
+        ln, _ = naive.prefill(params, {"tokens": toks})
+    check(lk.shape == (1, 1, cfg.vocab_size) and lk.dtype == bf
+          and bool(torch.isfinite(lk).all()), f"prefill logits {tuple(lk.shape)}")
+    prefill_diff = float((lk.float() - ln.float()).abs().max())
+    print(f"[dense] prefill of 64 tokens: pallas vs naive max |dlogit| "
+          f"{prefill_diff:.3g} (bf16 logits, top {float(lk.float().max()):.3g})",
+          flush=True)
+    kw = dict(max_batch=DENSE_SERVE["slots"], max_seq=DENSE_SERVE["max_seq"],
+              cache_dtype=bf)
+    run_engine(serve, model, params, reqs[:1], **kw)  # warm-up: cuBLAS, allocator
+    paged_kw = dict(kv_layout="paged", block_size=PAGED["block_size"])
+    paths = [("dense_serve", {}, "flash_decode"),
+             ("dense_paged", paged_kw, "flash_decode_paged"),
+             ("dense_spec", dict(draft_depth=PAGED["draft_depth"]), "flash_decode_spec")]
+    out, launches = {}, {}
+    for path, extra, kname in paths:
+        rs = shared_prefix_requests(serve, reqs) if "kv_layout" in extra else reqs
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        done, engine, wall = run_engine(serve, model, params, rs, **kw, **extra)
+        counts = launches[path] = fa.all_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = [engine._decode, engine._spec_decode]
+        replays = sum(getattr(f, "replays", 0) for f in steps)
+        check(counts[kname] > 0 and replays > 0,
+              f"{path}: {kname} launched {counts[kname]} times, {replays} replays")
+        if "kv_layout" not in extra:  # paged prefill runs plain chunked attention
+            check(counts["flash_fwd"] > 0, f"{path}: no flash_fwd launch")
+        check(engine.cache["k"].dtype == bf, f"{path}: cache not bf16")
+        check(sorted(done) == [r.uid for r in rs], f"{path}: requests missing")
+        check_tokens(path, engine, cfg.vocab_size)
+        fa.reset_launches()
+        done_n, engine_n, wall_n = run_engine(serve, naive, params, rs, **kw, **extra)
+        check(not any(fa.all_launches().values()), f"{path}: the plain path launched")
+        divergences = []
+        ident = same_streams(path, streams_of(done), streams_of(done_n), naive, params,
+                             rs, cache_dtype=bf, divergences=divergences)
+        st = engine.stats()
+        out[path] = {"tok_s": engine.tokens_out / wall, "wall_s": wall,
+                     "naive_tok_s": engine_n.tokens_out / wall_n,
+                     "tokens": engine.tokens_out, "decode_steps": engine.decode_steps,
+                     "replays": replays, "peak_memory_gb": peak_gb,
+                     "identical_streams": ident, "divergences": divergences,
+                     "launches": counts}
+        if path == "dense_paged":
+            out[path].update(prefill_chunks_skipped=st["prefill_chunks_skipped"],
+                             cow_copies=st["cow_copies"])
+        if path == "dense_spec":
+            out[path].update(acceptance=st["spec_acceptance"],
+                             verify_passes=engine.decode_steps)
+        print(f"[dense] {path}: {engine.tokens_out} tokens in {wall:.3f} s "
+              f"({engine.tokens_out / wall:.1f} tok/s captured; plain path "
+              f"{engine_n.tokens_out / wall_n:.1f}), {engine.decode_steps} steps, "
+              f"{replays} replays, peak {peak_gb:.2f} GB, {ident}/{len(rs)} streams "
+              f"identical to the plain path's, launches {counts}", flush=True)
+        del done, engine, done_n, engine_n
+    prof = profile_decode(serve, model, params, reqs, label=", nemotron bf16", **kw)
+    out["decode_step"] = {"host_ms": prof[0], "device_ms": prof[1],
+                          "flash_decode_ms": prof[2]}
+    out.update(arch=cfg.name, params=cfg.param_count(), weights_gb=weights_gb,
+               init_peak_gb=init_peak_gb, prefill_max_abs_dlogit=prefill_diff,
+               **{k: DENSE_SERVE[k] for k in ("slots", "requests", "gen", "max_seq")})
+    del model, naive, params, lk, ln
+    free_cuda()
+    return out, launches
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def remat_grads(build_model, cfg, batch, impl, remat):
+    """Loss and gradients of ``batch`` from the seeded initial f32 params
+    under ``remat``, eager autograd, and the device memory above the
+    parameters (GB): what the forward keeps for the backward (the policy's
+    saved activations), the forward's peak, and the peak of the backward."""
+    model = build_model(cfg, impl=impl, remat=remat, device="cuda")
+    params = model.init(model.generator(DENSE_TRAIN["seed"]))
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = model.loss(params, batch)
+    torch.cuda.synchronize()
+    mem = {"kept": torch.cuda.memory_allocated() - base,
+           "forward_peak": torch.cuda.max_memory_allocated() - base}
+    torch.cuda.reset_peak_memory_stats()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    mem["backward_peak"] = torch.cuda.max_memory_allocated() - base
+    out = float(loss.detach())
+    del model, params, leaves, loss
+    free_cuda()
+    return out, grads, {k: v / 1e9 for k, v in mem.items()}
+
+
+def rel_err(got, want) -> float:
+    num = sum(float((a.double() - b.double()).square().sum()) for a, b in zip(got, want))
+    return (num / sum(float(b.double().square().sum()) for b in want)) ** 0.5
+
+
+def dense_train_phase(fa, build_model, cfg):
+    """Phase 20(b): granite-3-2b at full width trained through
+    ``TrainSession`` on the f32 ``full`` rung (adam, lr 3e-4, batch 4 x 512,
+    4 steps, the step captured: eager, capture, two replays) under remat
+    none, dots and full in turn, each policy's graphs freed before the next;
+    then the bf16 ``lean`` rung under full. Returns (the JSON object, each
+    run's launch counts)."""
+    from repro_torch.engine.rungs import default_rung_ladder
+    from repro_torch.engine.session import TrainSession
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.optimizers import adam
+    B, S, steps = DENSE_TRAIN["batch"], DENSE_TRAIN["seq"], DENSE_TRAIN["steps"]
+    batch_fn = make_batch_fn(cfg, B, S, seed=DENSE_TRAIN["seed"])
+    print(f"[dense] train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"hd {cfg.head_dim}, vocab {cfg.vocab_size} tied; "
+          f"{cfg.param_count() / 1e9:.3f}B params f32, adam lr {DENSE_TRAIN['lr']}, "
+          f"batch {B} x {S}, {steps} steps a policy", flush=True)
+    first = {k: torch.as_tensor(v, device="cuda") for k, v in batch_fn(0).items()}
+    # first-step gradients: each policy against none, and under full the
+    # kernels against the plain path (two gradient sets held at a time)
+    loss0, grad_rel, grads_equal, grad_peak = {}, {}, {}, {}
+    loss0["pallas/none"], none, grad_peak["none"] = remat_grads(
+        build_model, cfg, first, "pallas", "none")
+    for r in ("dots", "full"):
+        loss0[f"pallas/{r}"], got, grad_peak[r] = remat_grads(
+            build_model, cfg, first, "pallas", r)
+        grad_rel[r] = rel_err(got, none)
+        grads_equal[r] = all(torch.equal(a, b) for a, b in zip(got, none))
+        if r == "dots":
+            del got
+    del none
+    loss0["naive/full"], plain, _ = remat_grads(build_model, cfg, first, "naive", "full")
+    grad_rel["naive/full"] = rel_err(got, plain)
+    del got, plain
+    free_cuda()
+    print(f"[dense] device memory above the f32 params, none/dots/full (GB): kept "
+          f"for the backward {[round(grad_peak[r]['kept'], 3) for r in REMATS]}, "
+          f"the forward's peak {[round(grad_peak[r]['forward_peak'], 3) for r in REMATS]}"
+          f", the backward's peak {[round(grad_peak[r]['backward_peak'], 3) for r in REMATS]}"
+          f" ({cfg.param_count() * 4 / 1e9:.2f} GB of gradients, stacked per leaf "
+          f"at its end)", flush=True)
+    for key in ("kept", "forward_peak"):
+        got = [grad_peak[r][key] for r in REMATS]
+        check(got[0] > got[1] > got[2], f"{key} memory not none > dots > full: {got}")
+    plain_loss_rel = abs(loss0["pallas/full"] - loss0["naive/full"]) / abs(loss0["naive/full"])
+    print(f"[dense] first-step gradients: dots {grad_rel['dots']:.3g}, full "
+          f"{grad_rel['full']:.3g} of none's (bitwise {grads_equal}); under full, "
+          f"kernels vs plain path {grad_rel['naive/full']:.3g} (limit {GRAD_RTOL}), "
+          f"losses {loss0}", flush=True)
+    for r in ("dots", "full"):
+        check(grad_rel[r] <= GRAD_RTOL, f"remat {r}: first-step gradients differ "
+              f"from none's by {grad_rel[r]}")
+    check(grad_rel["naive/full"] <= GRAD_RTOL and plain_loss_rel <= LOSS_RTOL,
+          f"remat full: kernels vs plain path gradients {grad_rel['naive/full']}, "
+          f"loss {plain_loss_rel}")
+
+    full, *_, lean = default_rung_ladder(batch=B, attn_impl="pallas")
+    runs, launches = {}, {}
+    for label, rung in [(f"f32/{r}", dataclasses.replace(full, remat=r)) for r in REMATS] \
+            + [("bf16/full", dataclasses.replace(lean, remat="full"))]:
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall = run_session(TrainSession, [rung], cfg, batch_fn, steps,
+                                optimizer=adam(), lr=DENSE_TRAIN["lr"], adaptive=False)
+        counts = launches[label] = fa.all_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step = rung.jitted_step(cfg, adam(), lr=DENSE_TRAIN["lr"], device="cuda")
+        ms = step_ms(res)
+        runs[label] = {"losses": res.losses, "step_ms": ms,
+                       "median_step_ms": statistics.median(ms[2:]),
+                       "peak_memory_gb": peak_gb, "capture_ms": 1e3 * step.capture_s,
+                       "captures": step.captures, "replays": step.replays,
+                       "microbatch": rung.microbatch, "launches": counts}
+        print(f"[dense] {rung.name} rung ({rung.param_dtype}, microbatch "
+              f"{rung.microbatch}) remat {rung.remat}: losses "
+              f"{[round(x, 6) for x in res.losses]}; step ms {[round(x, 1) for x in ms]}"
+              f", median (replays) {runs[label]['median_step_ms']:.1f}; peak "
+              f"{peak_gb:.2f} GB; capture {1e3 * step.capture_s:.1f} ms; launches "
+              f"{counts}", flush=True)
+        check(step.captures == 1 and step.replays == steps - 1,
+              f"{label}: {step.captures} captures, {step.replays} replays")
+        check(all(map(lambda x: x == x and abs(x) < 1e9, res.losses)),
+              f"{label}: losses not finite {res.losses}")
+        calls = cfg.n_layers * rung.microbatch * steps
+        check(counts["flash_fwd"] == calls * (1 if rung.remat == "none" else 2)
+              and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == calls,
+              f"{label}: launches {counts}, {calls} expected a kernel (flash_fwd "
+              f"twice under remat: the recomputed forward)")
+        del res, step
+        rung.invalidate()
+        free_cuda()
+    base = runs["f32/none"]["losses"]
+    loss_rel = {r: max(abs(a - b) / abs(b) for a, b in zip(runs[f"f32/{r}"]["losses"], base))
+                for r in ("dots", "full")}
+    losses_equal = {r: runs[f"f32/{r}"]["losses"] == base for r in ("dots", "full")}
+    step_peaks = [runs[f"f32/{r}"]["peak_memory_gb"] for r in REMATS]
+    print(f"[dense] losses against none: {loss_rel} (limit {LOSS_RTOL}; bitwise "
+          f"{losses_equal}); a whole step's peak memory none/dots/full "
+          f"{[round(p, 2) for p in step_peaks]} GB (the optimizer's update, after "
+          f"the backward, sets it)", flush=True)
+    for r in ("dots", "full"):
+        check(loss_rel[r] <= LOSS_RTOL, f"remat {r}: losses differ by {loss_rel[r]}")
+    return {"arch": cfg.name, "params": cfg.param_count(), **DENSE_TRAIN,
+            "memory_gb": grad_peak, "step_peak_memory_gb": step_peaks,
+            "first_step_grad_rel_err": grad_rel, "first_step_grads_bitwise": grads_equal,
+            "first_step_losses": loss0, "plain_loss_rel_diff": plain_loss_rel,
+            "loss_rel_diff_max": loss_rel, "losses_bitwise": losses_equal,
+            "runs": runs}, launches
+
+
+def release_device_memory() -> dict:
+    """Free what earlier phases leave pinned on the card, and return the
+    allocated and reserved GB before and after. Each stream that ran a
+    cuBLAS product keeps a workspace, and one carved from a large cached
+    segment keeps the whole segment reserved: before phase 20 on an H100
+    80GB HBM3 at 700 W, 1.85 GB were allocated and 12.77 GB reserved with
+    no tensor, graph, engine or rung reachable from Python, and
+    granite-3-2b's capture then ran out of memory. No graph of an earlier
+    phase is alive, so none reads a workspace freed here."""
+    def gb():
+        return [torch.cuda.memory_allocated() / 1e9, torch.cuda.memory_reserved() / 1e9]
+    free_cuda()
+    before = gb()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    out = {"allocated_reserved_gb_before": before, "allocated_reserved_gb_after": gb()}
+    print(f"[dense] device memory left by earlier phases (allocated, reserved GB): "
+          f"{[round(x, 2) for x in before]}, after freeing cuBLAS workspaces "
+          f"{[round(x, 2) for x in out['allocated_reserved_gb_after']]}", flush=True)
+    return out
+
+
+def dense_phase(fa, ref, serve, build_model, get_config, gather):
+    """Phase 20: the kernels at nemotron-4-15b's geometry, nemotron-4-15b
+    served (a), granite-3-2b trained (b). Returns (the JSON object, the
+    kernels' checks, each path's launch counts)."""
+    released = release_device_memory()
+    serve_cfg, train_cfg = get_config(DENSE_SERVE["arch"]), get_config(DENSE_TRAIN["arch"])
+    kchecks = check_dense_kernels(fa, ref, gather, serve_cfg)
+    for c in (c for cs in kchecks.values() for c in cs):
+        check(c["ok"], f"kernel disagrees with its plain version: {c}")
+    serve_out, serve_launches = dense_serve_phase(fa, serve, build_model, serve_cfg)
+    release_device_memory()
+    train_out, train_launches = dense_train_phase(fa, build_model, train_cfg)
+    launches = dict(serve_launches)
+    launches.update({f"dense_train_{k.replace('/', '_')}": v
+                     for k, v in train_launches.items()})
+    return {"released": released, "serve": serve_out, "train": train_out}, kchecks, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3139,6 +3561,10 @@ def main() -> int:
     sampled_out, sampled_launches = sampled_phase(fa, serve, build_model, cfg, reqs,
                                                   contig_streams)
     lap("phase 19")
+    free_cuda()
+    dense_out, dense_checks, dense_launches = dense_phase(
+        fa, ref, serve, build_model, get_config, gather_paged_kv)
+    lap("phase 20")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -3226,6 +3652,10 @@ def main() -> int:
         for p, counts in sampled_launches.items():  # phase 19
             if counts.get(e["name"], 0):
                 e["launches_by_path"][p] = counts[e["name"]]
+        for p, counts in dense_launches.items():  # phase 20
+            if counts.get(e["name"], 0):
+                e["launches_by_path"][p] = counts[e["name"]]
+        e["checks"] += dense_checks.get(e["name"], [])  # nemotron's geometry
         e["launches"] = sum(e["launches_by_path"].values())
     # the decode kernels' mixed-dtype instantiations (phase 3's checks,
     # phase 17's launches): a KV cache in another dtype than the queries'
@@ -3250,6 +3680,7 @@ def main() -> int:
     print(json.dumps({"cotenancy": cotenancy_out}, default=str))
     print(json.dumps({"fl": fl_out}))
     print(json.dumps({"serve_sampled": sampled_out}))
+    print(json.dumps({"dense": dense_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ controller and migrates in place when interference appears;
 (``start:stop:slowdown[,...]``) and ``--thermal-trace`` closed-loop thermal
 throttling (``heat:cool:slowdown[:trigger:release]``, paper §3.3) so the
 adaptive path can be exercised on a quiet machine. ``--arch`` accepts any
-registry config the port has: ``llama3.2-1b`` (the dense family) and the
-paper's CNNs ``resnet34``, ``mobilenet-v2`` and ``shufflenet-v2`` (trained on
+registry config the port has: the dense family (``llama3.2-1b``,
+``granite-3-2b``, ``nemotron-4-15b``, ``command-r-35b``) and the paper's CNNs ``resnet34``, ``mobilenet-v2`` and ``shufflenet-v2`` (trained on
 synthetic images; ``--seq`` is unused). A CNN trains on the plain path
 (``--attn-impl naive``, which ``auto`` picks at the default ``--seq``): the
 depthwise kernel that ``pallas`` selects has no gradient, as in the

@@ -6,15 +6,21 @@ there, and each pass below takes all layers' views with one ``unbind(0)``
 per stacked leaf (``_layer_views``): its backward stacks the layers'
 gradients once, where indexing layer ``i`` as ``v[i]`` would write a
 zero-filled gradient the size of the whole stacked leaf for every layer
-(~4 GB of writes per layer at llama3.2-1b's full width). The KV cache keeps
-the JAX layout too: ``{"k", "v"}`` of shape (L, B, Smax, K, hd), so the
-tests compare caches directly; the paged layout keeps its
-(L, num_blocks, block_size, K, hd) pools. The MoE, VLM, SSM and hybrid
-families are not ported yet.
+(~4 GB of writes per layer at llama3.2-1b's full width). ``remat``
+checkpoints each block as the reference's ``jax.checkpoint`` policies do
+(``_maybe_remat``). The KV cache keeps the JAX layout too: ``{"k", "v"}``
+of shape (L, B, Smax, K, hd), so the tests compare caches directly; the
+paged layout keeps its (L, num_blocks, block_size, K, hd) pools. The MoE,
+VLM, SSM and hybrid families are not ported yet.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.models.attention import (gqa_decode, gqa_decode_paged,
                                           gqa_decode_spec,
@@ -45,16 +51,47 @@ def _layer_views(layers, n: int):
     return walk(layers)
 
 
+# the products without batch dimensions: ``x @ W`` with a 2-D weight, which
+# matmul folds to one of these (the attention's batched products reach bmm)
+_NO_BATCH_DOTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without batch dimensions (the projections), recompute
+    everything else (norms, activations, rope, the attention's batched
+    products and the flash kernels' outputs)."""
+    return CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# the reference's REMAT_POLICIES as ``checkpoint`` context functions
+REMAT_POLICIES = {
+    "dots": functools.partial(create_selective_checkpoint_contexts, _dots_policy),
+    "full": noop_context_fn,  # nothing_saveable: only the block's inputs
+}
+
+
 def _maybe_remat(fn, remat: str):
-    """The reference's rematerialization switch. Only ``"none"`` is ported:
-    ``"full"`` and ``"dots"`` (``jax.checkpoint`` policies) wait for
-    ``torch.utils.checkpoint`` with a matching save policy."""
+    """The reference's rematerialization switch, applied per dense block:
+    ``torch.utils.checkpoint`` keeps the block's inputs (and under ``"dots"``
+    its projections' outputs) and recomputes the rest in the backward. The
+    RNG state is not kept: the decoder draws nothing, and reading the CUDA
+    RNG state cannot be captured in a CUDA graph."""
     if remat == "none":
         return fn
-    if remat in ("full", "dots"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported to repro_torch yet; use 'none'")
-    raise ValueError(f"unknown remat policy {remat!r}")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; "
+                         f"known: {['none', *REMAT_POLICIES]}")
+    context_fn = REMAT_POLICIES[remat]
+
+    def block(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn,
+                          **kwargs)
+
+    return block
 
 
 # ---------------------------------------------------------------------------

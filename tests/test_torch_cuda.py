@@ -422,6 +422,54 @@ def test_flash_decode_spec_matches_plain(dtype, lowp, paged, K, S, G, hd, hdv, b
     assert torch.equal(out, getattr(fa, name)(*args, lowp=lowp))
 
 
+# nemotron-4-15b's decode geometry: 48 query heads over 8 KV heads (G = 6,
+# a KV head's second row group of 4 half full), head dim 128; a depth-4
+# verify window of S = 5 gives S*G = 30 rows (two row blocks of 24)
+NEMOTRON_DECODE = dict(B=4, K=8, G=6, hd=128, bs=16, T=32, S=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", CASES + [(torch.bfloat16, False)])
+@pytest.mark.parametrize("kernel", ["flash_decode", "flash_decode_paged",
+                                    "flash_decode_spec", "flash_decode_spec_paged"])
+def test_decode_kernels_at_the_nemotron_geometry(kernel, dtype, lowp):
+    """The four decode kernels at K8 G6 hd128 over 512 positions (32 blocks
+    of 16 a row), at the serve run's ragged lengths, 0 and the capacity,
+    launched once a call, against their plain versions; bf16 without lowp
+    (bf16 weights and cache: the serve path's mode) against the plain
+    version's f32 result on the same bf16 values, beside half a bf16 unit
+    for the kernel's rounding of its f32 result."""
+    dev = _device()
+    c = NEMOTRON_DECODE
+    B, K, G, hd, bs, T = c["B"], c["K"], c["G"], c["hd"], c["bs"], c["T"]
+    g = torch.Generator(device=dev).manual_seed(G * hd)
+    spec = "spec" in kernel
+    qshape = (B, K, c["S"], G, hd) if spec else (B, K, G, hd)
+    q = torch.randn(*qshape, generator=g, device=dev).to(dtype)
+    cap = bs * T
+    lens = torch.tensor([0, 193, 320, cap - c["S"] if spec else cap],
+                        dtype=torch.int32, device=dev)
+    if "paged" in kernel:
+        kp, vp, table = _pool_and_table(g, dev, dtype, B, K, hd, hd, bs, T)
+        args = (q, kp, vp, table, lens)
+    else:
+        args = (q, *(torch.randn(B, cap, K, hd, generator=g, device=dev).to(dtype)
+                     for _ in range(2)), lens)
+    before = fa.launches[kernel]
+    out = getattr(fa, kernel)(*args, lowp=lowp)
+    assert fa.launches[kernel] == before + 1
+    assert out.shape == qshape and out.dtype == dtype
+    plain = getattr(ref, f"ref_{kernel}")
+    if dtype == torch.bfloat16 and not lowp:
+        want = plain(*(a.float() if a.is_floating_point() else a for a in args))
+        _assert_bf16_out_close(out, want, F32)
+    else:
+        want = plain(*args, lowp=lowp)
+        torch.testing.assert_close(out.float(), want.float(), **(BF16 if lowp else F32))
+    if not spec:
+        assert not out[0].any(), "a length-0 row must return zeros"
+
+
 @pytest.mark.cuda
 def test_split_decode_kernels_share_the_arrival_counts():
     """flash_decode_paged and flash_decode_spec_paged run back to back on one
@@ -1238,7 +1286,7 @@ def _recording_optimizer():
     return Optimizer("record_grads", init, update, 4)
 
 
-def _train_runs(width, microbatch, jit, steps, migrate=False):
+def _train_runs(width, microbatch, jit, steps, migrate=False, remat="none"):
     """``steps`` adam steps of llama3.2-1b (``width``) at batch 4 x 64 through
     ``Rung.jitted_step``; with ``migrate``, steps 2-3 on a bf16 rung at
     microbatch 4 and the rest back on f32 (full -> lean -> full, the
@@ -1246,14 +1294,16 @@ def _train_runs(width, microbatch, jit, steps, migrate=False):
     ones lie elsewhere). Returns (losses, first-step gradients, the full
     rung's compiled step's captures, replays and last call, the launches of
     each step). The gradients are those of the third call of a step that
-    records them: a replay when ``jit``."""
+    records them: a replay when ``jit``. ``remat`` sets the full rung's
+    activation checkpointing."""
     import numpy as np
     from repro_torch.engine.rungs import Rung
     from repro_torch.launch.steps import cast_params, init_train_state
     from repro_torch.optim.optimizers import adam
     dev = _device()
     cfg = _llama(width)
-    full = Rung(name="full", microbatch=microbatch, attn_impl="pallas")
+    full = Rung(name="full", microbatch=microbatch, attn_impl="pallas",
+                remat=remat)
     lean = Rung(name="lean", microbatch=4, attn_impl="pallas",
                 param_dtype="bfloat16")
     rng = np.random.default_rng(0)
@@ -1322,6 +1372,34 @@ def test_compiled_train_step_matches_eager(freed, width, microbatch):
     assert _rel(got[1], want[1]) <= 1e-4
     assert got[3] == want[3]
     assert got[2] == (1, 3, "replay")  # captures, replays, the last call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_compiled_remat_train_step_matches_eager_and_none(freed, width, remat):
+    """A remat rung's step captured: its recomputation runs inside the CUDA
+    graph. 4 adam steps captured and eager, and without remat: losses
+    within 1e-3, first-step gradients within 1e-4 (norm-wise) of both, the
+    same launches captured and eager, the calls warm-up, capture, replay,
+    replay; the recomputed forward launches flash_fwd a second time in
+    every layer, the backward kernels once."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    got = _train_runs(width, 1, True, 4, remat=remat)
+    eager = _train_runs(width, 1, False, 4, remat=remat)
+    none = _train_runs(width, 1, True, 4)
+    for want in (eager, none):
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-3)
+        assert _rel(got[1], want[1]) <= 1e-4
+    assert got[3] == eager[3]
+    assert got[2] == (1, 3, "replay")
+    n = get_config("llama3.2-1b").n_layers if width == "full" else \
+        get_config("llama3.2-1b").reduced().n_layers
+    for counts, base in zip(got[3], none[3]):
+        assert counts["flash_fwd"] == 2 * base["flash_fwd"] == 2 * n
+        assert counts["flash_bwd_dq"] == base["flash_bwd_dq"] == n
+        assert counts["flash_bwd_dkv"] == base["flash_bwd_dkv"] == n
 
 
 @pytest.mark.cuda

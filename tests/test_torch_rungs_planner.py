@@ -67,14 +67,14 @@ ENGINE_LADDER = [dict(mesh_shape=(16, 16), microbatch=1, attn_impl="pallas",
                  dict(mesh_shape=(8, 16), microbatch=4, remat="full",
                       prime_pod=False),
                  dict(mesh_shape=(8, 8), microbatch=16, prime_pod=False)]
-# a ladder every field of which the port runs (no remat), microbatches
-# dividing batch 8
+# a ladder every field of which the port runs (remat among them, as in
+# ENGINE_LADDER), microbatches dividing batch 8
 SESSION_LADDER = [dict(mesh_shape=(16, 16), microbatch=1, attn_impl="naive",
                        prime_pod=True),
                   dict(mesh_shape=(8, 16), microbatch=2, attn_impl="naive",
-                       prime_pod=False),
+                       remat="full", prime_pod=False),
                   dict(mesh_shape=(8, 8), microbatch=4, attn_impl="naive",
-                       prime_pod=False)]
+                       remat="dots", prime_pod=False)]
 
 
 def _profiles(mesh_cls, profile_cls, specs, lats=(0.1, 0.2, 0.3)):

@@ -110,10 +110,13 @@ def test_loss_decoder_value_and_grads_match_jax(jparams, impl):
         np.testing.assert_allclose(got[k].numpy(), want[k], **TOL, err_msg=k)
 
 
-def test_remat_policies_other_than_none_are_not_ported():
-    model = build_model(CFG, impl="naive", remat="full", device="cpu")
+def test_unknown_remat_policy_is_refused():
+    """``none``, ``dots`` and ``full`` are the reference's policies (the
+    last two are held to ``jax.checkpoint`` in ``tests/test_torch_remat.py``);
+    any other name raises."""
+    model = build_model(CFG, impl="naive", remat="offload", device="cpu")
     params = model.init(model.generator(0))
-    with pytest.raises(NotImplementedError, match="remat"):
+    with pytest.raises(ValueError, match="unknown remat policy 'offload'"):
         model.loss(params, {"tokens": torch.zeros(1, 8, dtype=torch.int32)})
 
 
