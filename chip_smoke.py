@@ -230,6 +230,37 @@ Phases (any failure raises and the script exits non-zero):
    step under remat (the recomputed forward), the backward kernels once;
    then the bf16 ``lean`` rung under full. Prints each run's step ms and
    peak memory (a whole step's, which adam's update sets).
+21. Telemetry on the card (``repro_torch.obs``; ``benchmarks/obs_bench.py``'s
+   gate of at most 3% tokens/s). (a) obs_bench's engine (2 layers, d_model
+   64, 4/2 heads, vocab 256, plain attention, paged blocks of 4, 4 slots,
+   max_seq 64), the decode step captured and warmed, waves of 8 prompts of
+   8 tokens and 16 new tokens, telemetry off and on interleaved in 40
+   pairs, each run timed over its decode steps alone (its admissions, the
+   eager paged prefill, timed to a synchronise and taken out: their host
+   jitter spreads a whole wave by more than 3%); the same with telemetry
+   off in both arms (A/A). Gate: the "on" runs recorded spans, and the
+   median of the pairs' on/off ratios is at least 0.97, and so is the A/A
+   median (the method resolves the gate). (b) phase 4's engine and
+   requests at full width, captured, obs_bench's own method on whole
+   waves: 9 interleaved repetitions a mode, best of each, on/off at least
+   0.97; streams on equal to off and to phase 4's, ``serve.decode`` once
+   a decode step, no capture in the timed runs; each span's mean host µs.
+   (c) the serve
+   CLI (``launch.serve.main``) at full width with ``--telemetry-out`` and
+   ``--json-out``, contiguous greedy and paged at draft depth 4: decode and
+   verify spans equal the payload's steps, ``serve.prefill`` the
+   admissions, ``serve.prefill_chunk`` and ``serve.cow_copy`` the engine's
+   counters, the final ``spec_*`` metrics its ``spec_drafted`` and
+   ``spec_accepted``, ``schema_version`` in the payload, and
+   ``launch/obs_report.py``'s re-derived trace the span names of
+   ``trace.json``. (d) phase 17(b)'s mixed run at 2 layers (paged, without
+   the burst and chaos, whose pauses the audit records as such), with
+   ``--battery-j 200`` and ``--telemetry-out``: the assertions of
+   ``tests/test_obs.py::test_mixed_run_emits_complete_bundle`` (metric
+   families, span names, one ``runtime.tick`` a tick, an audit commit with
+   scores for every migration, ``runtime.tick`` the top span). Every span
+   wraps an engine's call of a step from the host, so a replay counts as
+   an eager call does; spans time host work only.
 
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
@@ -256,17 +287,17 @@ all four, bf16 q over an f32 cache in flash_decode, at the serve shape.
 Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
 ...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
 ``{"rmsnorm": ...}``, ``{"planner": ...}``, ``{"cotenancy": ...}``,
-``{"fl": ...}``, ``{"serve_sampled": ...}``, ``{"dense": ...}`` and
-``{"kernels": [...]}`` (all ten kernels, with phase 19's and phase 20's
-launches on those they run and phase 20's checks at nemotron-4-15b's
-geometry appended to their checks, then the five
-mixed-dtype decode entries with their phase-17 launches), the card's name
-and power limit as
-``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device":
-{...}}``.
+``{"fl": ...}``, ``{"serve_sampled": ...}``, ``{"dense": ...}``,
+``{"obs": ...}`` and ``{"kernels": [...]}`` (all ten kernels, with phase
+19's, 20's and 21's launches on those they run and phase 20's checks at
+nemotron-4-15b's geometry appended to their checks, then the five
+mixed-dtype decode entries with their phase-17 and 21(d) launches), the
+card's name and power limit as ``nvidia-smi`` gives them, and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -3470,6 +3501,338 @@ def dense_phase(fa, ref, serve, build_model, get_config, gather):
     return {"released": released, "serve": serve_out, "train": train_out}, kchecks, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: telemetry on the card
+# ---------------------------------------------------------------------------
+
+# benchmarks/obs_bench.py's waves and gate; interleaved off/on pairs of (a)
+# and repetitions a mode of (b) (obs_bench's --full count)
+OBS_BENCH = dict(seed=11, requests=8, prompt_len=8, gen=16, max_overhead=0.03,
+                 pairs=40, reps_full=9)
+OBS_CLI = ["--arch", "llama3.2-1b", "--attn-impl", "pallas", "--prompt-len", "64",
+           "--gen", "16", "--requests", "8", "--batch", "4"]
+# tests/test_obs.py::test_mixed_run_emits_complete_bundle's metric families
+OBS_FAMILIES = ["serve_tokens_out", "serve_occupancy", "train_loss", "train_steps_total",
+                "pool_utilization", "pool_fragmentation", "pool_total_cow",
+                "prefix_hit_rate", "energy_loan_j", "battery_level", "thermal_temp_c",
+                "thermal_throttled", "job_rung_idx", "job_step_latency_s",
+                "runtime_migrations_total"]
+
+
+def overhead_runs(obs, engine, waves, reps, control=False, decode_only=False):
+    """benchmarks/obs_bench.py's method on a warmed engine: ``reps``
+    repetitions of telemetry off then on, interleaved, one wave of requests
+    (``waves()``) a run, tok/s of each run and the best of each mode. With
+    ``decode_only`` a run's time leaves out its admissions (each prefill
+    timed to a synchronise at its end) and its tokens the first one of each
+    request, which the prefill emits: the rate of the decode steps alone.
+    With ``control`` telemetry stays off in the "on" runs too: the method's
+    own resolution (an A/A comparison). Returns each mode's tok/s, wall s
+    and streams, the best of each mode and their ratio, and the last "on"
+    run's tracer and decode steps."""
+    out = {"tok_s": {"off": [], "on": []}, "streams": {"off": [], "on": []},
+           "wall_s": {"off": [], "on": []}}
+    prefill_s = [0.0]
+    if decode_only:
+        admit = engine._admit
+
+        def timed_admit(slot, req):
+            t = time.perf_counter()
+            admit(slot, req)
+            torch.cuda.synchronize()
+            prefill_s[0] += time.perf_counter() - t
+        engine._admit = timed_admit
+    try:
+        for _ in range(reps):
+            for mode in ("off", "on"):
+                tel = obs.Telemetry(enabled=mode == "on" and not control)
+                prev = obs.set_telemetry(tel)
+                reqs = waves()
+                steps0, prefill_s[0] = engine.decode_steps, 0.0
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    done = engine.run(reqs)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0 - prefill_s[0]
+                finally:
+                    obs.set_telemetry(prev)
+                streams = [done[r.uid].tokens for r in reqs]
+                n = sum(map(len, streams)) - (len(reqs) if decode_only else 0)
+                out["tok_s"][mode].append(n / dt)
+                out["wall_s"][mode].append(dt)
+                out["streams"][mode].append(streams)
+                if mode == "on":
+                    out["tracer"], out["steps"] = tel.tracer, engine.decode_steps - steps0
+    finally:
+        if decode_only:
+            del engine._admit  # the class's own again
+    best = {m: max(v) for m, v in out["tok_s"].items()}
+    out["best_tok_s"], out["ratio"] = best, best["on"] / best["off"]
+    return out
+
+
+def span_counts(spans) -> dict:
+    return dict(collections.Counter(s["name"] for s in spans))
+
+
+def bundle_spans(outdir: Path) -> list:
+    doc = json.loads((outdir / "trace.json").read_text())
+    json.dumps(doc, allow_nan=False)  # strict JSON
+    return [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+
+
+def report_names(obs_report, outdir: Path, label) -> dict:
+    """``obs_report.main`` on a bundle with ``--chrome-trace``: its summary,
+    the re-derived trace's span names checked against trace.json's."""
+    chrome = outdir.parent / f"{outdir.name}_chrome.json"
+    rep = obs_report.main([str(outdir), "--top", "0", "--audit-limit", "5",
+                           "--chrome-trace", str(chrome)])
+    names = {e["name"] for e in json.loads(chrome.read_text())["traceEvents"]
+             if e["ph"] == "X"}
+    want = {e["name"] for e in bundle_spans(outdir)}
+    check(names == want, f"{label}: obs_report's trace has {sorted(names)}, "
+          f"trace.json {sorted(want)}")
+    return rep
+
+
+def telemetry_phase(fa, serve, build_model, cfg, reqs, contig_streams, smi):
+    """Phase 21: telemetry on the card. (a) benchmarks/obs_bench.py's gate
+    at its own settings, on the decode steps, (b) its gate at full width on
+    phase 4's requests, (c) the serve CLI's bundle, contiguous and paged
+    speculative,
+    (d) the mixed CLI's bundle under the reference's bundle assertions.
+    Returns (the JSON object, each path's launch counts)."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch import mixed, obs_report
+    B = OBS_BENCH
+    floor = 1.0 - B["max_overhead"]
+    out, launches = {"card": smi}, {}
+    check(not obs.get_telemetry().enabled, "telemetry on before phase 21")
+
+    # -- (a) obs_bench's engine: host-bound, where a span's cost shows most ----
+    tiny = ModelConfig(name="obs-tiny", family="dense", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
+                       tie_embeddings=True, source="benchmarks/obs_bench.py")
+    model = build_model(tiny, impl="naive", device="cuda")
+    engine = serve.ContinuousBatchingEngine(
+        model, model.init(model.generator(0)), max_batch=4, max_seq=64,
+        kv_layout="paged", block_size=4, prefix_cache=False)
+    rng = np.random.default_rng(B["seed"])
+    uid = [0]
+
+    def tiny_wave():
+        reqs_ = [serve.Request(uid=uid[0] + i, prompt=rng.integers(
+            0, 64, B["prompt_len"]).astype(np.int32), max_new_tokens=B["gen"])
+            for i in range(B["requests"])]
+        uid[0] += B["requests"]
+        return reqs_
+
+    engine.run(tiny_wave())  # the decode step's eager call, its capture, replays
+    fa.reset_launches()
+    a = overhead_runs(obs, engine, tiny_wave, B["pairs"], decode_only=True)
+    launches["telemetry_obs_bench"] = fa.all_launches()
+    control = overhead_runs(obs, engine, tiny_wave, B["pairs"], control=True,
+                            decode_only=True)
+    ratio, aa = (statistics.median(on / off for off, on in
+                                   zip(r["tok_s"]["off"], r["tok_s"]["on"]))
+                 for r in (a, control))
+    n_spans = len(a["tracer"].spans())
+    out["obs_bench"] = {"decode_tok_s": a["tok_s"], "ratio": ratio,
+                        "control_decode_tok_s": control["tok_s"], "control_ratio": aa,
+                        "spans_per_run": n_spans, "decode_steps_per_run": a["steps"],
+                        "span_mean_us": {k: v["mean_us"] for k, v in
+                                         a["tracer"].by_name().items()},
+                        "captures": engine._decode.captures,
+                        "replays": engine._decode.replays}
+    print(f"[obs] (a) obs_bench's engine, the decode steps alone, {B['pairs']} "
+          f"interleaved pairs: decode tok/s off median "
+          f"{statistics.median(a['tok_s']['off']):.0f}, on "
+          f"{statistics.median(a['tok_s']['on']):.0f}; median on/off {ratio:.4f}, "
+          f"the same with telemetry off in both (A/A) {aa:.4f} (gate >= {floor:.2f} "
+          f"each); {n_spans} spans a run over {a['steps']} decode steps; {smi}",
+          flush=True)
+    check(n_spans > 0, "(a): the runs with telemetry on recorded no span")
+    check(aa >= floor, f"(a): the method cannot resolve the gate: A/A {aa:.4f}")
+    check(ratio >= floor, f"(a): telemetry on reached {ratio:.4f} of off")
+    check(engine._decode.replays > 0, "(a): the decode step never replayed")
+    del engine, model, a, control
+    free_cuda()
+
+    # -- (b) full width, phase 4's requests, the decode captured ---------------
+    model = build_model(cfg, impl="pallas", device="cuda")
+    engine = serve.ContinuousBatchingEngine(model, model.init(model.generator(0)),
+                                            **engine_args({}))
+    uid = [0]
+
+    def full_wave():
+        reqs_ = [serve.Request(uid=uid[0] + r.uid, prompt=r.prompt,
+                               max_new_tokens=r.max_new_tokens) for r in reqs]
+        uid[0] += len(reqs)
+        return reqs_
+
+    engine.run(full_wave())  # warm: the capture, then replays
+    captures = engine._decode.captures
+    fa.reset_launches()
+    b = overhead_runs(obs, engine, full_wave, B["reps_full"])
+    launches["telemetry_full"] = fa.all_launches()
+    by_name = b["tracer"].by_name()
+    phase4 = [contig_streams[r.uid] for r in reqs]
+    runs = b["streams"]["off"] + b["streams"]["on"]
+    out["full_width"] = {
+        "tok_s": b["tok_s"], "best_tok_s": b["best_tok_s"], "ratio": b["ratio"],
+        "decode_steps_per_run": b["steps"],
+        "spans_per_step": len(b["tracer"].spans()) / b["steps"],
+        "span_mean_us": {k: v["mean_us"] for k, v in by_name.items()},
+        "span_count": {k: v["count"] for k, v in by_name.items()},
+        "identical_streams": all(s == runs[0] for s in runs),
+        "identical_to_phase4": runs[0] == phase4,
+        "captures": engine._decode.captures, "replays": engine._decode.replays,
+        "launches": launches["telemetry_full"]}
+    fw = out["full_width"]
+    print(f"[obs] (b) {cfg.name} {cfg.n_layers} layers, captured, {B['reps_full']} "
+          f"interleaved repetitions: tok/s off {[round(x, 1) for x in b['tok_s']['off']]}, "
+          f"on {[round(x, 1) for x in b['tok_s']['on']]}; best on/off {b['ratio']:.4f} "
+          f"(gate >= {floor:.2f}); {fw['spans_per_step']:.2f} spans a decode step; mean "
+          f"host us { {k: round(v, 1) for k, v in fw['span_mean_us'].items()}}; streams "
+          f"identical {fw['identical_streams']} (to phase 4: "
+          f"{fw['identical_to_phase4']}); {smi}", flush=True)
+    check(b["ratio"] >= floor, f"(b): telemetry on reached {b['ratio']:.4f} of off")
+    check(fw["identical_streams"], "(b): streams with telemetry on differ from off")
+    check(fw["identical_to_phase4"], "(b): streams differ from phase 4's")
+    check(by_name["serve.decode"]["count"] == b["steps"],
+          f"(b): {by_name['serve.decode']['count']} serve.decode spans for "
+          f"{b['steps']} decode steps")
+    check(engine._decode.captures == captures and engine._decode.replays > 0,
+          f"(b): the timed runs captured again ({captures} -> {engine._decode.captures})")
+    check(launches["telemetry_full"]["flash_decode"] > 0
+          and launches["telemetry_full"]["flash_fwd"] > 0,
+          f"(b): launches {launches['telemetry_full']}")
+    del engine, model, b, by_name
+    free_cuda()
+
+    # -- (c) the serve CLI's bundle: contiguous, then paged speculative --------
+    out["serve_cli"] = {}
+    with tempfile.TemporaryDirectory(prefix="obs_") as tmp:
+        for label, extra in (("contig", []),
+                             ("paged_spec", ["--kv-layout", "paged",
+                                             "--draft-depth", "4"])):
+            tel_dir, js = Path(tmp) / label, Path(tmp) / f"{label}.json"
+            prev = obs.get_telemetry()
+            try:
+                serve.main(OBS_CLI + extra + ["--telemetry-out", str(tel_dir),
+                                              "--json-out", str(js)])
+            finally:
+                obs.set_telemetry(prev)
+            launches[f"telemetry_cli_{label}"] = fa.all_launches()
+            payload = json.loads(js.read_text())
+            st = payload["stats"]
+            count = span_counts(bundle_spans(tel_dir))
+            rep = report_names(obs_report, tel_dir, f"(c) {label}")
+            final = rep["final_metrics"]
+            c = {"steps": payload["steps"], "tok_s": payload["tok_s"],
+                 "span_count": count,
+                 "span_mean_us": {r["name"]: r["mean_us"] for r in rep["spans"]},
+                 "launches": launches[f"telemetry_cli_{label}"]}
+            check(payload.get("schema_version") == obs.SCHEMA_VERSION,
+                  f"(c) {label}: --json-out has no schema_version")
+            check(count.get("serve.decode", 0) + count.get("serve.spec_verify", 0)
+                  == payload["steps"], f"(c) {label}: spans {count} for "
+                  f"{payload['steps']} steps")
+            check(count.get("serve.cow_copy", 0) == st.get("cow_copies", 0),
+                  f"(c) {label}: cow spans {count} against {st.get('cow_copies')}")
+            if label == "contig":
+                check(count["serve.prefill"] == payload["requests"] == len(payload["finished"]),
+                      f"(c) contig: {count.get('serve.prefill')} serve.prefill spans "
+                      f"for {payload['requests']} admissions")
+                check(launches["telemetry_cli_contig"]["flash_decode"] > 0,
+                      f"(c) contig: launches {launches['telemetry_cli_contig']}")
+            else:
+                check(count["serve.prefill_chunk"] == st["prefill_chunks"],
+                      f"(c) paged: {count.get('serve.prefill_chunk')} chunk spans, "
+                      f"{st['prefill_chunks']} chunks")
+                check(count["serve.spec_draft"] == count["serve.spec_verify"] > 0,
+                      f"(c) paged: spans {count}")
+                check(final.get("spec_drafted_total") == st["spec_drafted"]
+                      and final.get("spec_accepted_total") == st["spec_accepted"],
+                      f"(c) paged: metrics {final} against stats "
+                      f"{st['spec_drafted']}, {st['spec_accepted']}")
+                check(launches["telemetry_cli_paged_spec"]["flash_decode_spec_paged"] > 0,
+                      f"(c) paged: launches {launches['telemetry_cli_paged_spec']}")
+                c["spec"] = [final.get("spec_drafted_total"),
+                             final.get("spec_accepted_total"),
+                             final.get("spec_acceptance_rate")]
+            out["serve_cli"][label] = c
+            print(f"[obs] (c) serve CLI {label}: {payload['steps']} steps, "
+                  f"{payload['tok_s']:.1f} tok/s; spans {count}; obs_report's "
+                  f"trace names equal trace.json's", flush=True)
+    free_cuda()
+
+    # -- (d) the mixed CLI's bundle: the reference's bundle assertions ---------
+    C = COTENANT
+    with tempfile.TemporaryDirectory(prefix="obs_mixed_") as tmp:
+        tel_dir = Path(tmp) / "tel"
+        prev = obs.get_telemetry()
+        try:
+            res, payload, d = run_mixed(fa, mixed, "telemetry", mixed_argv(
+                ticks=C["ticks_b"], requests=C["requests_b"],
+                prompt_len=C["prompt_len_b"], gen=C["gen_b"],
+                thermal_trace=C["thermal"], kv_layout="paged", battery_j=200,
+                telemetry_out=str(tel_dir)), layers=C["layers_b"])
+        finally:
+            obs.set_telemetry(prev)
+        launches["telemetry_mixed"] = d["launches"]
+        lines = [json.loads(x) for x in (tel_dir / "metrics.jsonl").read_text().splitlines()]
+        body = [x for x in lines if "metrics" in x]
+        fams = {k.split("{")[0] for x in body for k in x["metrics"]}
+        missing = [f for f in OBS_FAMILIES if f not in fams]
+        check(lines[0]["schema_version"] == obs.SCHEMA_VERSION and not missing
+              and len(body) >= res.ticks, f"(d): metric families missing {missing}")
+        xs = bundle_spans(tel_dir)
+        names = {e["name"] for e in xs}
+        check({"runtime.tick", "train.step", "serve.decode",
+               "serve.prefill_chunk"} <= names, f"(d): span names {sorted(names)}")
+        check(all(e["dur"] >= 0 and e["ts"] >= 0 for e in xs), "(d): negative span times")
+        ticks = [e for e in xs if e["name"] == "runtime.tick"]
+        steps = [e for e in xs if e["name"] == "train.step"]
+        check(len(ticks) == res.ticks and steps and
+              any(e["args"].get("compile") for e in steps),
+              f"(d): {len(ticks)} runtime.tick spans for {res.ticks} ticks")
+        audit = obs.AuditLog.from_json(json.loads((tel_dir / "audit.json").read_text()))
+        commits = audit.commits()
+        migs = res.timeline.migrations
+        check(migs, "(d): the thermal trace forced no migration")
+        for m in migs:
+            rec = [r for r in commits if r.tick == m.step and r.job == m.job
+                   and r.from_rung == m.from_rung and r.to_rung == m.to_rung]
+            check(rec and rec[0].rule == m.reason and rec[0].scores
+                  and rec[0].thermal is not None and rec[0].energy is not None,
+                  f"(d): migration {m} has no audit commit with its scores")
+        check(any(r.event == "propose" for r in audit.records()), "(d): no propose")
+        check(payload.get("schema_version") == obs.SCHEMA_VERSION,
+              "(d): --json-out has no schema_version")
+        rep = report_names(obs_report, tel_dir, "(d)")
+        check(rep["spans"][0]["name"] == "runtime.tick" and rep["final_metrics"],
+              f"(d): obs_report's top span is {rep['spans'][0]['name']}")
+        out["mixed"] = {
+            "ticks": res.ticks, "migrations": len(migs),
+            "audit_records": len(audit), "commits": len(commits),
+            "span_count": span_counts(xs), "metric_families": len(fams),
+            "top_spans": [(r["name"], r["count"], r["mean_us"]) for r in rep["spans"][:6]],
+            "wall_s": d["wall_s"], "launches": d["launches"],
+            "mixed_launches": d["mixed_launches"]}
+        print(f"[obs] (d) mixed CLI, {C['layers_b']} layers: {res.ticks} ticks, "
+              f"{len(migs)} migrations each with its audit commit, spans "
+              f"{out['mixed']['span_count']}, {len(fams)} metric families", flush=True)
+        del res
+    free_cuda()
+    check(not obs.get_telemetry().enabled, "telemetry left on after phase 21")
+    out["settings"] = dict(B, cli=OBS_CLI)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3565,6 +3928,10 @@ def main() -> int:
     dense_out, dense_checks, dense_launches = dense_phase(
         fa, ref, serve, build_model, get_config, gather_paged_kv)
     lap("phase 20")
+    free_cuda()
+    obs_out, obs_launches = telemetry_phase(fa, serve, build_model, cfg, reqs,
+                                            contig_streams, smi)
+    lap("phase 21")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -3655,10 +4022,15 @@ def main() -> int:
         for p, counts in dense_launches.items():  # phase 20
             if counts.get(e["name"], 0):
                 e["launches_by_path"][p] = counts[e["name"]]
+        for p, counts in obs_launches.items():  # phase 21
+            if counts.get(e["name"], 0):
+                e["launches_by_path"][p] = counts[e["name"]]
         e["checks"] += dense_checks.get(e["name"], [])  # nemotron's geometry
         e["launches"] = sum(e["launches_by_path"].values())
     # the decode kernels' mixed-dtype instantiations (phase 3's checks,
-    # phase 17's launches): a KV cache in another dtype than the queries'
+    # phase 17's and 21(d)'s launches): a KV cache in another dtype than
+    # the queries'
+    cotenancy_mixed["telemetry_mixed"] = obs_out["mixed"]["mixed_launches"]
     replaces = {e["name"]: e["replaces"] for e in kernels}
     for c in mixed_dec:
         key = f"{c['name']}:{c['q_dtype']}:{c['kv_dtype']}"
@@ -3681,6 +4053,7 @@ def main() -> int:
     print(json.dumps({"fl": fl_out}))
     print(json.dumps({"serve_sampled": sampled_out}))
     print(json.dumps({"dense": dense_out}))
+    print(json.dumps({"obs": obs_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -76,12 +76,26 @@ under f32 weights (``set_kv_dtype("bfloat16")``, the bottom serving rung)
 runs the decode kernels' mixed-dtype instantiations: f32 queries over a
 bf16 cache, computed in f32.
 
-Not ported: telemetry spans and the lockstep loop.
+Telemetry (``repro_torch.obs``; ``--telemetry-out DIR`` writes the bundle):
+the reference's spans under its names and arguments (``serve.prefill``,
+``serve.prefill_chunk``, ``serve.decode``, ``serve.spec_draft``,
+``serve.spec_verify``, ``serve.cow_copy``, ``serve.swap_out``,
+``serve.swap_in``) and the speculation metrics ``spec_drafted_total``,
+``spec_accepted_total`` and ``spec_acceptance_rate``. Each span wraps the
+engine's *call* of a step from the host, never the step's body: a CUDA
+graph replays no Python, so a span inside a captured step would run once,
+at capture. A span times the host's side of the call (the launches or the
+replay, not the device's work), and adds no synchronization; with
+telemetry off a site costs one attribute lookup and a shared no-op.
+
+Not ported: the lockstep loop.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --batch 8 --attn-impl pallas [--kv-layout paged] [--draft-depth 3] \\
-      [--temperature 0.9 --top-k 32 --sample-seed 1]
+      [--temperature 0.9 --top-k 32 --sample-seed 1] \\
+      [--json-out serve.json] [--telemetry-out tel]
+  PYTHONPATH=src python -m repro_torch.launch.obs_report tel
 """
 from __future__ import annotations
 
@@ -95,7 +109,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import obs, prng
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention
 from repro_torch.kernels.backend import auto_decode_impl, resolve_device
@@ -431,27 +445,33 @@ class ContinuousBatchingEngine:
         order, and free them; swap-in may restore into any fresh blocks."""
         uid = self.slot_uid[slot]
         blocks = self.kv.slot_blocks(slot)
-        phys = torch.tensor(blocks, dtype=torch.long, device=self.device)
-        host = {name: pool[:, phys].cpu() for name, pool in self.cache.items()}
-        self.swapped[uid] = SwappedSeq(
-            uid=uid, generated=list(self.generated[slot]),
-            cache_len=int(self.cache_len[slot]),
-            budget=int(self.slot_budget[slot]),
-            next_token=int(self.tokens[slot, 0]), host_kv=host,
-            n_blocks=len(blocks), worst=self._reserved.pop(slot),
-            swapped_at=self.decode_steps)
-        self.slot_uid[slot] = None
-        self.kv.release(slot)
-        if self.draft is not None:
-            self.draft.release(slot)
-        self.swap_outs += 1
+        with obs.get_telemetry().span("serve.swap_out", uid=uid,
+                                      blocks=len(blocks)):
+            phys = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            host = {name: pool[:, phys].cpu()
+                    for name, pool in self.cache.items()}
+            self.swapped[uid] = SwappedSeq(
+                uid=uid, generated=list(self.generated[slot]),
+                cache_len=int(self.cache_len[slot]),
+                budget=int(self.slot_budget[slot]),
+                next_token=int(self.tokens[slot, 0]), host_kv=host,
+                n_blocks=len(blocks), worst=self._reserved.pop(slot),
+                swapped_at=self.decode_steps)
+            self.slot_uid[slot] = None
+            self.kv.release(slot)
+            if self.draft is not None:
+                self.draft.release(slot)
+            self.swap_outs += 1
 
     def _swap_in(self, slot: int, sw: SwappedSeq) -> None:
         """Restore a parked sequence into fresh pool blocks and resume."""
-        blocks = self.kv.admit(slot, sw.uid, sw.n_blocks * self.block_size)
-        phys = torch.tensor(blocks, dtype=torch.long, device=self.device)
-        for name, pool in self.cache.items():
-            pool[:, phys] = sw.host_kv[name].to(self.device, pool.dtype)
+        with obs.get_telemetry().span("serve.swap_in", uid=sw.uid,
+                                      blocks=sw.n_blocks):
+            blocks = self.kv.admit(slot, sw.uid,
+                                   sw.n_blocks * self.block_size)
+            phys = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            for name, pool in self.cache.items():
+                pool[:, phys] = sw.host_kv[name].to(self.device, pool.dtype)
         self._reserved[slot] = sw.worst
         self.slot_uid[slot] = sw.uid
         self.slot_budget[slot] = sw.budget
@@ -552,9 +572,11 @@ class ContinuousBatchingEngine:
                 # causal attention keeps every position < P unaffected by the
                 # right-padding; logits must come from the true last token
                 batch["last_pos"] = P - 1
-            logits, pcache = self._prefill(self.params, batch)
-            for name, buf in self.cache.items():  # in-place splice into the slot
-                buf[:, slot:slot + 1, :Lp] = pcache[name].to(buf.dtype)
+            with obs.get_telemetry().span("serve.prefill", uid=req.uid,
+                                          prompt_len=P, padded_len=Lp):
+                logits, pcache = self._prefill(self.params, batch)
+                for name, buf in self.cache.items():  # splice into the slot
+                    buf[:, slot:slot + 1, :Lp] = pcache[name].to(buf.dtype)
         first = self._pick_token(logits[0, -1], req.uid, 0)
         self.slot_uid[slot] = req.uid
         self.slot_budget[slot] = req.max_new_tokens
@@ -594,17 +616,22 @@ class ContinuousBatchingEngine:
             device=self.device)
         first_miss = n_blocks if covered >= P else covered // bs
         logits = None
+        tel = obs.get_telemetry()
         for c in range(first_miss, n_blocks):
-            logits, _ = self._prefill_chunk(
-                self.params, self.cache, padded[None, c * bs:(c + 1) * bs],
-                c * bs, table_row, min(P - 1 - c * bs, bs - 1))
+            with tel.span("serve.prefill_chunk", uid=req.uid, chunk=c,
+                          of=n_blocks):
+                logits, _ = self._prefill_chunk(
+                    self.params, self.cache, padded[None, c * bs:(c + 1) * bs],
+                    c * bs, table_row, min(P - 1 - c * bs, bs - 1))
             self.prefill_chunks += 1
         self.prefill_chunks_skipped += first_miss
         if logits is None:  # every block hit: read-only last-chunk recompute
             c = n_blocks - 1
-            logits, _ = self._prefill_chunk_ro(
-                self.params, self.cache, padded[None, c * bs:(c + 1) * bs],
-                c * bs, table_row, P - 1 - c * bs)
+            with tel.span("serve.prefill_chunk", uid=req.uid, chunk=c,
+                          of=n_blocks, readonly=True):
+                logits, _ = self._prefill_chunk_ro(
+                    self.params, self.cache, padded[None, c * bs:(c + 1) * bs],
+                    c * bs, table_row, P - 1 - c * bs)
             self.prefill_chunks += 1
         self.kv.index_prompt(slot, req.prompt)
         return logits
@@ -782,8 +809,11 @@ class ContinuousBatchingEngine:
             for i in range(n):
                 ev = self.kv.append(slot, cl + i)
                 if ev is not None and ev.kind == "cow":
-                    for pool in self.cache.values():  # (L, NB, bs, K, hd)
-                        pool[:, ev.block] = pool[:, ev.src]
+                    with obs.get_telemetry().span("serve.cow_copy",
+                                                  slot=slot, src=ev.src,
+                                                  dst=ev.block):
+                        for pool in self.cache.values():  # (L, NB, bs, K, hd)
+                            pool[:, ev.block] = pool[:, ev.src]
                     self.cow_copies += 1
 
     def _ship_dirty_tables(self) -> None:
@@ -861,17 +891,15 @@ class ContinuousBatchingEngine:
         # a sampled step draws inside itself, under each slot's stream key
         keys = () if self._sampler is None else \
             (self._dev("keys", self._stream_keys()),)
+        tables = ()
         if self.kv is not None:
             self._append_positions(active, 1)
             self._ship_dirty_tables()
+            tables = (self._dev_tables,)
+        with obs.get_telemetry().span("serve.decode", batch=len(active)):
             next_tok, _, self.cache = self._decode(
                 self.params, self.cache, self._dev("tokens", self.tokens),
-                self._dev("cache_len", self.cache_len), self._dev_tables,
-                *keys)
-        else:
-            next_tok, _, self.cache = self._decode(
-                self.params, self.cache, self._dev("tokens", self.tokens),
-                self._dev("cache_len", self.cache_len), *keys)
+                self._dev("cache_len", self.cache_len), *tables, *keys)
         self._note_compiled(self._decode)
         next_np = next_tok.cpu().numpy()
         self.decode_steps += 1
@@ -906,7 +934,9 @@ class ContinuousBatchingEngine:
         greedy decode; sampled mode is distribution-faithful rejection
         sampling on the engine's fold_in(seed, uid, index) streams."""
         S = k + 1
-        drafts, dprobs = self.draft.propose(active, k)
+        tel = obs.get_telemetry()
+        with tel.span("serve.spec_draft", batch=len(active), k=k):
+            drafts, dprobs = self.draft.propose(active, k)
         win = np.zeros((self.max_batch, S), np.int32)
         win[:, 0] = self.tokens[:, 0]
         probs_b = None
@@ -917,16 +947,15 @@ class ContinuousBatchingEngine:
             win[slot, 1:] = drafts[row]
             if probs_b is not None:
                 probs_b[slot] = dprobs[row]
+        tables = ()
         if self.kv is not None:
             self._append_positions(active, S)
             self._ship_dirty_tables()
+            tables = (self._dev_tables,)
+        with tel.span("serve.spec_verify", batch=len(active), k=k):
             logits, self.cache = self._spec_decode(
                 self.params, self.cache, self._dev("window", win),
-                self._dev("cache_len", self.cache_len), self._dev_tables)
-        else:
-            logits, self.cache = self._spec_decode(
-                self.params, self.cache, self._dev("window", win),
-                self._dev("cache_len", self.cache_len))
+                self._dev("cache_len", self.cache_len), *tables)
         self._note_compiled(self._spec_decode)
         # the compiled step's logits are its graph's buffer: verified here,
         # on the device, before the next call overwrites them
@@ -944,12 +973,14 @@ class ContinuousBatchingEngine:
         self.decode_steps += 1
         self._active_slot_steps += len(active)
         emitted: List[Tuple[int, int]] = []
+        accepted_total = 0
         for slot in active:
             uid = self.slot_uid[slot]
             seq = [int(t) for t in tok_np[slot, :int(n_np[slot])]]
             self.spec_rounds += 1
             self.spec_drafted += k
             self.spec_accepted += len(seq) - 1
+            accepted_total += len(seq) - 1
             retired = False
             for tok in seq:
                 self.generated[slot].append(tok)
@@ -968,6 +999,14 @@ class ContinuousBatchingEngine:
                     break
             if not retired:
                 self.draft.commit(slot, seq[:-1], seq[-1])
+        m = tel.metrics
+        m.counter("spec_drafted_total",
+                  "draft tokens proposed to the verifier").inc(k * len(active))
+        m.counter("spec_accepted_total",
+                  "draft tokens accepted by the verifier").inc(accepted_total)
+        m.gauge("spec_acceptance_rate",
+                "running accepted/drafted ratio").set(
+            self.spec_accepted / max(1, self.spec_drafted))
         return emitted
 
     def _note_compiled(self, step) -> None:
@@ -1132,8 +1171,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json-out", default=None)
+    ap.add_argument("--telemetry-out", default=None,
+                    help="directory for the repro_torch.obs telemetry bundle "
+                         "(metrics.jsonl, spans.jsonl, trace.json, "
+                         "audit.json)")
     args = ap.parse_args(argv)
 
+    # before the model and the engine are built, so every span lands
+    tel = obs.enable() if args.telemetry_out else None
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -1197,7 +1242,7 @@ def main(argv=None):
     sample = finished[0].tokens[:12] if 0 in finished else []
     print("sample uid=0:", sample)
     if args.json_out:
-        payload = {
+        payload = obs.versioned({
             "arch": cfg.name, "impl": impl, "device": dev_name,
             "kv_layout": args.kv_layout, "slots": args.batch,
             "requests": n_req, "tokens": engine.tokens_out,
@@ -1207,9 +1252,13 @@ def main(argv=None):
             "finished": {str(u): {"reason": f.reason, "n_tokens": len(f.tokens),
                                   "prompt_len": f.prompt_len}
                          for u, f in finished.items()},
-        }
+        })
         with open(args.json_out, "w") as f:
-            json.dump(payload, f, indent=1)
+            json.dump(obs.encode_record(payload), f, indent=1)
+    if tel is not None:
+        tel.save(args.telemetry_out)
+        print(f"[obs] telemetry bundle -> {args.telemetry_out} "
+              f"({len(tel.tracer.spans())} spans)")
     return finished
 
 

@@ -1251,6 +1251,86 @@ def test_compiled_sampled_serve_matches_eager(freed, monkeypatch, layout, policy
     assert not [s for s in moved if s and s[-1] == cfg.vocab_size], moved
 
 
+class _CountingStep:
+    """A compiled step's calls counted by how each ran (``last_call``:
+    warmup, capture or replay); every other attribute is the step's."""
+
+    def __init__(self, step):
+        import collections
+        self.step, self.calls = step, collections.Counter()
+
+    def __call__(self, *args):
+        out = self.step(*args)
+        self.calls[self.step.last_call] += 1
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,depth", [("contig", 0), ("paged", 0),
+                                          ("contig", 4), ("paged", 4)])
+def test_serve_spans_around_captured_steps(freed, layout, depth):
+    """llama3.2-1b reduced, 8 slots, the decode and verify steps captured:
+    a span wraps the engine's call of a step from the host, so
+    ``serve.decode`` counts every decode call and ``serve.spec_verify``
+    every verify round, whether the call ran eagerly, captured or replayed;
+    every span argument is a Python int; the speculation counters equal the
+    engine's; and the streams with telemetry on are those with it off."""
+    import collections
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    dev = _device()
+    cfg = _llama("reduced")
+    model = build_model(cfg, impl="pallas", device=dev)
+    params = model.init(model.generator(0))
+    runs = {}
+    for enabled in (False, True):
+        tel = obs.Telemetry(enabled=enabled)
+        prev = obs.set_telemetry(tel)
+        try:
+            engine = serve.ContinuousBatchingEngine(
+                model, params, max_batch=8, max_seq=64, kv_layout=layout,
+                block_size=4, draft_depth=depth)
+            engine._decode = decode = _CountingStep(engine._decode)
+            engine._spec_decode = verify = _CountingStep(engine._spec_decode)
+            done = engine.run(_serve_requests(cfg, 12))
+        finally:
+            obs.set_telemetry(prev)
+        runs[enabled] = dict(
+            streams={u: f.tokens for u, f in done.items()},
+            spans=[(s.name, s.args) for s in tel.tracer.spans()],
+            metrics={k: v["series"][0]["value"] for k, v in
+                     tel.metrics.snapshot()["metrics"].items()},
+            decode=decode.calls, verify=verify.calls, stats=engine.stats())
+        del engine, decode, verify
+    on, off = runs[True], runs[False]
+    assert on["streams"] == off["streams"] and off["spans"] == []
+    names = collections.Counter(n for n, _ in on["spans"])
+    assert names["serve.decode"] == sum(on["decode"].values())
+    assert names["serve.spec_verify"] == sum(on["verify"].values())
+    assert names["serve.decode"] + names["serve.spec_verify"] == \
+        on["stats"]["decode_steps"]
+    ran = on["verify"] if depth else on["decode"]
+    assert {"warmup", "capture", "replay"} <= set(ran), ran
+    for name, args in on["spans"]:
+        for k, v in args.items():
+            assert type(v) is int or (k == "readonly" and v is True), \
+                (name, k, type(v))
+    if layout == "paged":
+        assert names["serve.prefill_chunk"] == on["stats"]["prefill_chunks"]
+        assert names["serve.cow_copy"] == on["stats"]["cow_copies"] >= 1
+    else:
+        assert names["serve.prefill"] == len(on["streams"])
+    if depth:
+        assert names["serve.spec_draft"] == names["serve.spec_verify"]
+        assert on["metrics"]["spec_drafted_total"] == on["stats"]["spec_drafted"]
+        assert on["metrics"]["spec_accepted_total"] == \
+            on["stats"]["spec_accepted"]
+
+
 @pytest.mark.cuda
 def test_prng_on_the_card_matches_the_cpu():
     """(8, 128256) random bits and uniforms on the card equal the CPU's from
