@@ -10,7 +10,7 @@ Phases (any failure raises and the script exits non-zero):
 1. Device: exits non-zero, printing no result, unless
    ``torch.cuda.is_available()``. TF32 is switched off for matmuls and
    cuDNN, so every f32 product on the card runs in full f32.
-2. Build: compiles the six ``src/repro_torch/csrc/*.cu`` for sm_90a with
+2. Build: compiles the seven ``src/repro_torch/csrc/*.cu`` for sm_90a with
    nvcc (one process per source, started together) into ``build/kernels/``.
 3. Kernels: calls each kernel's wrapper on the card at the shapes of the
    serve and train paths and holds it against its plain PyTorch version
@@ -242,7 +242,7 @@ Phases (any failure raises and the script exits non-zero):
    median of the pairs' on/off ratios is at least 0.97, and so is the A/A
    median (the method resolves the gate). (b) phase 4's engine and
    requests at full width, captured, obs_bench's own method on whole
-   waves: 9 interleaved repetitions a mode, best of each, on/off at least
+   waves: 15 interleaved repetitions a mode, best of each, on/off at least
    0.97; streams on equal to off and to phase 4's, ``serve.decode`` once
    a decode step, no capture in the timed runs; each span's mean host µs.
    (c) the serve
@@ -261,6 +261,37 @@ Phases (any failure raises and the script exits non-zero):
    scores for every migration, ``runtime.tick`` the top span). Every span
    wraps an engine's call of a step from the host, so a replay counts as
    an eager call does; spans time host work only.
+22. The deepseek family at full width, in bf16 and in f32. (a)
+   ``flash_decode_mla`` and ``flash_decode_mla_paged`` (``MLA_KERNEL``:
+   deepseek-v3's latent geometry, H = G 128, keys of r 512 + rd 64, values
+   the 512-wide latent, scale 1/sqrt(192); B 8 over 4096 positions, 256
+   blocks of 16 paged, ragged lengths with 0 and 4097) against their plain
+   versions, f32 q over a bf16 and an f32 cache, beside one SDPA over the
+   128 heads as one head's query rows (cat, upcast, and the gather paged,
+   in its time); then the GQA kernels at deepseek-moe-16b's geometry (K 16,
+   G 1, hd 128: ``check_dense_kernels``). (b) deepseek-v3-671b cut to 4
+   layers (its 3 dense MLA layers, 1 MLA + MoE layer of 256 routed experts
+   and 1 shared, the MTP head's params: 671B does not fit one card) and (c)
+   deepseek-moe-16b whole (28 layers), each served as the serve CLI's
+   ``--attn-impl auto`` builds it (the kernels at max_seq 512), captured,
+   ``DEEPSEEK``'s 4 slots, 8 requests of 192-320 tokens and 16 greedy
+   tokens: (b) contiguous and paged (the MLA kernels launch on each; the
+   prefill warns once and takes the chunked path, as the reference's
+   does), (c) contiguous, paged and speculative (draft depth 4); then both
+   again with f32 weights and cache (63.2 and 65.5 GB). Streams compared
+   with the plain path's (``naive``) under ``moe_streams``: phase 5's rule,
+   the plain path's margin taken from its own batched run (a replay alone
+   would change what shares the experts' capacity), or else the causally
+   first decisions the two paths took differently in that token's past (a
+   router top-k, a capacity cut, another stream's token where capacity
+   couples the streams; ordered by call, then moe layer), each within phase
+   5's rule, from eager recorded reruns that must give the captured
+   streams. The f32 runs are held to it. The bf16 runs are reported, not
+   held: the bf16 residual stream rounds each layer's output, so two correct
+   summation orders drift apart by several units of the router logits by
+   the deep layers, and a first decision outside one unit says nothing of
+   the kernel there. Prints each path's tok/s, peak memory, launches, and
+   (bf16) a profiled decode step's host and device ms.
 
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
@@ -288,10 +319,12 @@ Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
 ...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
 ``{"rmsnorm": ...}``, ``{"planner": ...}``, ``{"cotenancy": ...}``,
 ``{"fl": ...}``, ``{"serve_sampled": ...}``, ``{"dense": ...}``,
-``{"obs": ...}`` and ``{"kernels": [...]}`` (all ten kernels, with phase
-19's, 20's and 21's launches on those they run and phase 20's checks at
-nemotron-4-15b's geometry appended to their checks, then the five
-mixed-dtype decode entries with their phase-17 and 21(d) launches), the
+``{"obs": ...}``, ``{"deepseek": ...}`` and ``{"kernels": [...]}`` (all ten
+kernels, with phase 19's to 22's launches on those they run and phase 20's
+and 22's checks at nemotron-4-15b's and deepseek-moe-16b's geometries
+appended to their checks, then the five mixed-dtype decode entries with
+their phase-17 and 21(d) launches, then the MLA latent decode's two
+layouts with phase 22(a)'s checks and 22(b)'s launches), the
 card's name and power limit as ``nvidia-smi`` gives them, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -3146,8 +3179,9 @@ def dense_requests(serve, vocab):
 
 
 def check_dense_kernels(fa, ref, gather, cfg):
-    """The attention kernels at nemotron-4-15b's geometry, in the serve
-    path's mode (bf16 q and cache, dots in f32: no lowp) and in f32: the
+    """The attention kernels at nemotron-4-15b's geometry (and, in phase 22,
+    at deepseek-moe-16b's: K 16, G 1), in the serve path's mode (bf16 q and
+    cache, dots in f32: no lowp) and in f32: the
     prefill forward over H = 48 heads of hd 128 (S = 320, the longest
     prompt), then the three decode kernels at B = 4 slots, K = 8, G = 6
     (a KV head's second row group of 4 half full), over 512 positions (32
@@ -3210,7 +3244,7 @@ def check_dense_kernels(fa, ref, gather, cfg):
                 + (B * T * 4 if paged else 0)
             bf16 = dtype == torch.bfloat16
             out[name].append(kernel_check(
-                f"{name} (nemotron, plan {plan[:2]})", got, want,
+                f"{name} ({cfg.name}, plan {plan[:2]})", got, want,
                 F32_TOL, err_fn=max_err_bf16_out if bf16 else max_err,
                 shape=list(qshape) + ([bs, T] if paged else [cap]), lengths=lens_list,
                 plan=list(plan[:2]), dtype=str(dtype).replace("torch.", ""),
@@ -3506,9 +3540,12 @@ def dense_phase(fa, ref, serve, build_model, get_config, gather):
 # ---------------------------------------------------------------------------
 
 # benchmarks/obs_bench.py's waves and gate; interleaved off/on pairs of (a)
-# and repetitions a mode of (b) (obs_bench's --full count)
+# and repetitions a mode of (b): more than obs_bench's --full 9, because a
+# whole wave's eager prefill on a shared host spreads its runs by up to 25%
+# (511-682 tok/s off in one run), and the best of 9 then missed the gate
+# with telemetry costing nothing measurable in (a)
 OBS_BENCH = dict(seed=11, requests=8, prompt_len=8, gen=16, max_overhead=0.03,
-                 pairs=40, reps_full=9)
+                 pairs=40, reps_full=15)
 OBS_CLI = ["--arch", "llama3.2-1b", "--attn-impl", "pallas", "--prompt-len", "64",
            "--gen", "16", "--requests", "8", "--batch", "4"]
 # tests/test_obs.py::test_mixed_run_emits_complete_bundle's metric families
@@ -3833,6 +3870,526 @@ def telemetry_phase(fa, serve, build_model, cfg, reqs, contig_streams, smi):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the deepseek family at full width
+# ---------------------------------------------------------------------------
+
+# (a) the MLA latent decode at deepseek-v3's geometry: 8 sequences over 4096
+# positions (256 blocks of 16 paged), ragged, with a length 0 and a retired
+# slot's capacity + 1
+MLA_KERNEL = dict(B=8, Smax=4096, bs=16, lengths=[0, 1, 4097, 731, 2048, 4095, 3333, 1500])
+# (b), (c): served as phase 20 serves nemotron-4-15b (4 slots, 8 requests of
+# 192-320 tokens, 16 greedy tokens), bf16 weights and cache; max_seq 512 is
+# where --attn-impl auto picks the kernels (kernels/backend.auto_decode_impl)
+DEEPSEEK = dict(slots=4, requests=8, prompt_lo=192, prompt_hi=320, gen=16,
+                max_seq=512, seed=0, v3_layers=4)
+
+
+def check_mla_kernels(fa, ref, gather, cfg):
+    """Phase 22(a): ``flash_decode_mla`` and ``flash_decode_mla_paged`` at
+    deepseek-v3's latent geometry (H = G 128, r 512, rd 64, scale
+    1/sqrt(192)), f32 queries over a bf16 and an f32 cache, against their
+    plain versions (2e-5). The library call: one SDPA over the 128 heads as
+    128 query rows of one head, keys cat(latent, k_rope) (and the gather,
+    paged), values the latent (Ev 512), a length mask, in f32 (a bf16 cache
+    upcast first: the kernel computes in f32). Returns {kernel: [checks]}."""
+    import torch.nn.functional as F
+    c = MLA_KERNEL
+    B, S, bs = c["B"], c["Smax"], c["bs"]
+    H, r, rd = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    scale = 1.0 / (cfg.qk_nope_head_dim + rd) ** 0.5
+    T = S // bs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = torch.tensor(c["lengths"], dtype=torch.int32, device="cuda")
+    live = sum(min(n, S) for n in c["lengths"])
+    g = torch.Generator(device="cuda").manual_seed(22)
+    out = {"flash_decode_mla": [], "flash_decode_mla_paged": []}
+    for name in out:
+        paged = name.endswith("paged")
+        for dtype in (torch.bfloat16, torch.float32):
+            q_lat = torch.randn(B, H, r, generator=g, device="cuda")
+            q_rope = torch.randn(B, H, rd, generator=g, device="cuda")
+            if paged:  # a shuffled table over B*T + 1 blocks, row 0 idle at null block 0
+                lat = (torch.randn(B * T + 1, bs, r, generator=g, device="cuda") * 0.3).to(dtype)
+                kr = torch.randn(B * T + 1, bs, rd, generator=g, device="cuda").to(dtype)
+                table = (torch.randperm(B * T, generator=g, device="cuda") + 1
+                         ).reshape(B, T).to(torch.int32)
+                table[0] = 0
+                args = (q_lat, q_rope, lat, kr, table, lengths)
+            else:
+                lat = (torch.randn(B, S, r, generator=g, device="cuda") * 0.3).to(dtype)
+                kr = torch.randn(B, S, rd, generator=g, device="cuda").to(dtype)
+                args = (q_lat, q_rope, lat, kr, lengths)
+            kernel, plain = getattr(fa, name), getattr(ref, "ref_" + name)
+            got = kernel(*args, scale=scale, lowp=False)
+            want = plain(*args, scale=scale, lowp=False)
+            torch.cuda.synchronize()
+            q = torch.cat([q_lat, q_rope], -1)[:, None]  # (B, 1, H, r + rd)
+            mask = (torch.arange(S, device="cuda")[None] < lengths.clamp(max=S)[:, None]
+                    )[:, None, None]
+
+            def library():  # (gather,) cat, upcast, one SDPA
+                la, kb = (gather(lat, table), gather(kr, table)) if paged else (lat, kr)
+                keys = torch.cat([la, kb], -1).float()[:, None]
+                return F.scaled_dot_product_attention(q, keys, la.float()[:, None],
+                                                      attn_mask=mask, scale=scale)
+            elt = lat.element_size()
+            nbytes = live * (r + rd) * elt + (q_lat.numel() + q_rope.numel()) * 4 \
+                + B * H * r * 4 + B * 4 + (B * T * 4 if paged else 0)
+            rows = B * -(-H // fa.MLA_ROWS)
+            plan = fa.decode_mla_plan(T if paged else -(-S // fa.MLA_BLOCK), rows, sms)
+            out[name].append(kernel_check(
+                f"{name} (deepseek-v3 latent, plan {plan})", got, want, F32_TOL,
+                shape=[B, H, r, rd] + ([bs, T] if paged else [S]),
+                lengths=c["lengths"], plan=list(plan),
+                dtype=str(dtype).replace("torch.", ""),
+                ms=time_ms(lambda: kernel(*args, scale=scale, lowp=False)),
+                plain_ms=time_ms(lambda: plain(*args, scale=scale, lowp=False)),
+                library_ms=time_ms(library),
+                library_calls=("gather x2 + cat + upcast + SDPA" if paged
+                               else "cat + upcast + SDPA"),
+                nbytes=nbytes, flops=2 * H * (2 * r + rd) * live, lowp=False))
+    return out
+
+
+def deepseek_requests(serve, vocab):
+    rng = np.random.default_rng(DEEPSEEK["seed"])
+    return [serve.Request(uid=u, prompt=rng.integers(0, vocab, int(rng.integers(
+        DEEPSEEK["prompt_lo"], DEEPSEEK["prompt_hi"] + 1))).astype(np.int32),
+        max_new_tokens=DEEPSEEK["gen"]) for u in range(DEEPSEEK["requests"])]
+
+
+def _margin_units(values, dtype, k):
+    """The k-th largest value of each row less the (k+1)-th, and one unit in
+    the last place of ``dtype`` at the k-th: (margins, units), lists."""
+    top = values.float().topk(k + 1, dim=-1).values
+    _, e = torch.frexp(top[..., k - 1].abs())
+    unit = torch.finfo(dtype).eps * torch.ldexp(torch.ones_like(top[..., 0]), e - 1)
+    return (top[..., k - 1] - top[..., k]).reshape(-1).tolist(), unit.reshape(-1).tolist()
+
+
+def recorded_moe_run(serve, moe_mod, model, params, reqs, **engine_kw):
+    """The engine run eagerly (``jit=False``) with its steps and its moe
+    layers wrapped, recording every discrete decision a stream's tokens
+    meet. Returns a dict: ``streams``; ``dec[(uid, n, s, layer)]`` = (the
+    experts the router chose for row s of the uid's n-th call in that moe
+    layer, those of them that kept the token within their capacity, the
+    k-th router logit less the (k+1)-th, one unit of the logits' dtype at
+    the k-th, the token's distance in gate value from its experts' capacity
+    cut); ``seq[(uid, n)]`` = the call's number in the run; ``calls[seq]`` =
+    [the streams in the call, whether capacity cut any moe layer of it];
+    ``margins[(uid, index)]`` = (the greedy decision's top-2 logit margin,
+    one unit of the logits' dtype at the top logit, the call's number). An
+    idle or retired slot's rows ride along as the stream ("slot", b, the
+    uid that last held it), whose tokens and cache they still carry."""
+    ctx = {"rows": None, "layer": 0, "uid": None, "seq": -1, "route": None}
+    rec = {"dec": {}, "seq": {}, "calls": {}, "margins": {}}
+    ordinal, occupant = {}, {}
+    real_top, real_local = moe_mod._top, moe_mod._moe_local
+
+    def top(x_flat, router_w, cfg):
+        out = real_top(x_flat, router_w, cfg)
+        if ctx["rows"] is not None:
+            logits = x_flat @ router_w  # the product's dtype: a bf16 model's logits are bf16
+            gaps, units = _margin_units(logits, logits.dtype, cfg.top_k)
+            ctx["route"] = (out[2].sort(-1).values.tolist(), gaps, units)
+        ctx["layer"] += 1
+        return out
+
+    def local(x_flat, gates, top_i, experts, capacity, activation):
+        rows = ctx["rows"]
+        if rows is not None:
+            chosen, gaps, units = ctx["route"]
+            T = x_flat.shape[0]
+            cap = min(capacity, T)
+            if cap < T:  # capacity cuts: which tokens an expert keeps is a decision too
+                rec["calls"][ctx["seq"]][1] = True
+                vals, idx = torch.topk(gates.T, cap + 1, dim=-1)  # (E, cap + 1)
+                kept = torch.zeros_like(gates.T, dtype=torch.bool)
+                kept.scatter_(1, idx[:, :cap], True)
+                kept = kept.T  # (T, E)
+                last, nxt = vals[:, cap - 1][None], vals[:, cap][None]
+                dist = torch.where(kept, torch.where(nxt > 0, gates - nxt, torch.inf),
+                                   last - gates)
+                srt = top_i.sort(-1).values
+                kept_rows = torch.gather(kept, 1, srt).tolist()
+                kgaps = torch.gather(dist, 1, srt).min(-1).values.tolist()
+                kept_of = [tuple(e for e, k in zip(c, kr) if k)
+                           for c, kr in zip(chosen, kept_rows)]
+            else:
+                kept_of, kgaps = [tuple(c) for c in chosen], [float("inf")] * T
+            layer = ctx["layer"] - 1
+            for i, key in enumerate(rows):
+                if key is not None:
+                    rec["dec"][key + (layer,)] = (tuple(chosen[i]), kept_of[i], gaps[i],
+                                                  units[i], kgaps[i])
+        return real_local(x_flat, gates, top_i, experts, capacity, activation)
+
+    def begin(rows):  # rows: (stream, s) or None per row of the call
+        ctx["seq"] += 1
+        streams = list(dict.fromkeys(r[0] for r in rows if r is not None))
+        for u in streams:
+            ordinal[u] = ordinal.get(u, -1) + 1
+            rec["seq"][(u, ordinal[u])] = ctx["seq"]
+        rec["calls"][ctx["seq"]] = [streams, False]
+        ctx.update(rows=[None if r is None else (r[0], ordinal[r[0]], r[1]) for r in rows],
+                   layer=0)
+
+    def end(logits, keys):  # logits (B, S, V); keys[b * S + s]: (uid, index) or None
+        ctx["rows"] = None
+        gaps, units = _margin_units(logits, logits.dtype, 1)
+        for key, m, u in zip(keys, gaps, units):
+            if key is not None:
+                rec["margins"][key] = (m, u, ctx["seq"])
+
+    engine = serve.ContinuousBatchingEngine(model, params, jit=False,
+                                            **engine_args(engine_kw))
+
+    def slot_rows(S):
+        rows, keys = [], []
+        for b in range(engine.max_batch):
+            u = engine.slot_uid[b]
+            for s in range(S):
+                rows.append((("slot", b, occupant.get(b)) if u is None else u, s))
+                keys.append(None if u is None else (u, len(engine.generated[b]) + s))
+        return rows, keys
+
+    real = {k: getattr(engine, k) for k in ("_admit", "_prefill", "_decode", "_spec_decode",
+                                            "_prefill_chunk", "_prefill_chunk_ro")
+            if getattr(engine, k, None) is not None}
+
+    def admit(slot, req):
+        ctx["uid"] = occupant[slot] = req.uid
+        return real["_admit"](slot, req)
+
+    def prefill(params, batch):
+        begin([(ctx["uid"], s) for s in range(batch["tokens"].shape[1])])
+        logits, pcache = real["_prefill"](params, batch)
+        end(logits, [(ctx["uid"], 0)])
+        return logits, pcache
+
+    def chunk(name):
+        def fn(params, cache, tokens, start, table, last_pos):
+            begin([(ctx["uid"], s) for s in range(tokens.shape[1])])
+            logits, cache = real[name](params, cache, tokens, start, table, last_pos)
+            end(logits, [(ctx["uid"], 0)])
+            return logits, cache
+        return fn
+
+    def decode(*args):
+        rows, keys = slot_rows(1)
+        begin(rows)
+        out = real["_decode"](*args)
+        end(out[1], keys)
+        return out
+
+    def verify(params, cache, window, *rest):
+        rows, keys = slot_rows(window.shape[1])
+        begin(rows)
+        logits, cache = real["_spec_decode"](params, cache, window, *rest)
+        end(logits, keys)
+        return logits, cache
+
+    engine._admit, engine._prefill, engine._decode = admit, prefill, decode
+    if "_spec_decode" in real:
+        engine._spec_decode = verify
+    for name in ("_prefill_chunk", "_prefill_chunk_ro"):
+        if name in real:
+            setattr(engine, name, chunk(name))
+    moe_mod._top, moe_mod._moe_local = top, local
+    try:
+        done = engine.run([serve.Request(uid=r.uid, prompt=r.prompt,
+                                         max_new_tokens=r.max_new_tokens) for r in reqs])
+    finally:
+        moe_mod._top, moe_mod._moe_local = real_top, real_local
+    del engine
+    rec["streams"] = streams_of(done)
+    return rec
+
+
+def _within(e) -> bool:
+    """Phase 5's rule for one decision: the plain path's margin below
+    LOGIT_TOL, or at most one unit of the deciding values' dtype."""
+    return e[3] < LOGIT_TOL or e[3] <= e[4]
+
+
+def first_decisions(kernel, plain, diffs):
+    """For each (uid, index) of ``diffs`` (a stream and its first token that
+    differs between the kernel run ``kernel`` and the plain run ``plain``,
+    both from ``recorded_moe_run``), the decisions the two runs made
+    differently in that token's causal past, and the causally first of them.
+
+    A decision is (time, kind, stream, the plain path's margin, its unit,
+    where): time = (the plain run's call number, the moe layer; the greedy
+    pick after every layer), kind "route" (the router's top-k), "capacity"
+    (the experts' capacity cut, margin in gate value, which has no unit but
+    LOGIT_TOL) or "greedy" (another stream's first differing token). The
+    past of a stream up to call t is its own decisions up to t, and, through
+    every call up to t in which capacity cut (which couples the call's
+    rows), the past of each other stream of that call up to it; an idle
+    slot's past includes that of the stream that last held it. Returns
+    {(uid, index): (n decisions in the past, [the causally first ones])}."""
+    events = collections.defaultdict(list)
+    for key, p in plain["dec"].items():
+        k = kernel["dec"].get(key)
+        if k is None:
+            continue
+        u, n, s, layer = key
+        if k[0] != p[0]:
+            kind, margin, unit = "route", p[2], p[3]
+        elif k[1] != p[1]:
+            kind, margin, unit = "capacity", p[4], 0.0
+        else:
+            continue
+        events[u].append(((plain["seq"][(u, n)], layer), kind, u, margin, unit,
+                          {"call": n, "row": s}))
+    for u, i in diffs:
+        gap, unit, seq = plain["margins"][(u, i)]
+        events[u].append(((seq, float("inf")), "greedy", u, gap, unit, {"token": i}))
+    calls_of = collections.defaultdict(list)
+    for seq, (streams, _) in sorted(plain["calls"].items()):
+        for u in streams:
+            calls_of[u].append(seq)
+    out = {}
+    for u, i in diffs:
+        t_u = plain["margins"][(u, i)][2]
+        past, best, stack = {}, {}, [(u, t_u)]
+        while stack:
+            v, t = stack.pop()
+            if best.get(v, -1) >= t:
+                continue
+            best[v] = t
+            for e in events.get(v, ()):
+                if (e[1] == "greedy" and v != u and e[0][0] < t) or \
+                        (e[1] != "greedy" and e[0][0] <= t):
+                    past[(e[0], e[1], repr(v), repr(e[5]))] = e
+            if isinstance(v, tuple) and v[2] is not None:  # an idle slot's rows
+                stack.append((v[2], t))
+            for seq in calls_of[v]:
+                if seq > t:
+                    break
+                streams, coupled = plain["calls"][seq]
+                if coupled:
+                    stack.extend((w, seq) for w in streams if w != v)
+        evs = list(past.values())
+        t0 = min((e[0] for e in evs), default=None)
+        out[(u, i)] = (len(evs), [e for e in evs if e[0] == t0])
+    return out
+
+
+def moe_streams(label, got, want, rerun, divergences, held=True):
+    """Phase 5's rule for a moe model, where a routing or capacity decision
+    taken differently magnifies a difference of summation order: streams
+    token-identical, or diverging only where (1) the plain path's top-2
+    logit margin at that token, taken from its own batched run (a replay of
+    the request alone would change what shares the experts' capacity), is
+    within the rule (``_within``), or (2) the causally first decisions that
+    the two paths took differently in that token's past
+    (``first_decisions``) were each within the rule: a router top-k or a
+    capacity cut at a near tie (a capacity cut may also follow from a
+    router decision beside it). ``rerun(impl)`` gives the eager recorded run
+    of each path (``recorded_moe_run``), whose streams must equal the
+    captured runs'. Appends each divergence with its first decisions to
+    ``divergences``. ``held=False`` reports the verdicts without failing on
+    them (the bf16 runs: phase 22's docstring says why). Returns the number
+    of identical streams."""
+    check(sorted(got) == sorted(want), f"{label}: requests missing")
+    diffs = []
+    for u in sorted(want):
+        if got[u] != want[u]:
+            check(len(got[u]) == len(want[u]), f"{label}: uid {u} has {len(got[u])} "
+                  f"tokens, not {len(want[u])}")
+            diffs.append((u, next(j for j in range(len(got[u])) if got[u][j] != want[u][j])))
+    if diffs:
+        kernel, plain = rerun("pallas"), rerun("naive")
+        check(kernel["streams"] == got and plain["streams"] == want,
+              f"{label}: the eager recorded runs gave other streams than the captured ones")
+        causes = first_decisions(kernel, plain, diffs)
+        for u, i in diffs:
+            margin, unit, _ = plain["margins"][(u, i)]
+            n_past, first = causes[(u, i)]
+            greedy_ok = margin < LOGIT_TOL or margin <= unit
+            first_ok = bool(first) and all(
+                _within(e) or (e[1] == "capacity" and any(x[1] == "route" for x in first))
+                for e in first)
+            ok = greedy_ok or first_ok
+            d = {"uid": u, "index": i, "got": got[u][i], "plain": want[u][i],
+                 "margin": margin, "unit": unit, "decisions_in_past": n_past,
+                 "within_rule": ok,
+                 "first": [{"kind": e[1], "stream": repr(e[2]), "call_seq": e[0][0],
+                            "moe_layer": e[0][1] if e[1] != "greedy" else None,
+                            "margin": e[3], "unit": e[4], "within": _within(e), **e[5]}
+                           for e in first]}
+            print(f"[{label}] uid {u} diverges at token {i}: {got[u][i]} vs {want[u][i]}, "
+                  f"plain top-2 margin {margin:.3g} (unit {unit:.3g}); {n_past} decisions "
+                  f"in its past differ, the first: "
+                  + ("; ".join(f"{e[1]} of {e[2]!r} at call {e[0][0]}"
+                               + (f" moe layer {e[0][1]}" if e[1] != "greedy" else "")
+                               + f", margin {e[3]:.3g} (unit {e[4]:.3g})"
+                               for e in sorted(first, key=lambda e: -e[3])[:3])
+                     + (f" (the widest 3 of {len(first)})" if len(first) > 3 else "")
+                     or "none")
+                  + f" -> {'within' if ok else 'OUTSIDE'} phase 5's rule")
+            divergences.append(d)
+            if held:
+                check(ok, f"{label}: uid {u} diverges at token {i} where the margin is "
+                      f"{margin}, and the first decisions its past took differently are "
+                      f"not near ties: {d['first'][:3]}")
+    identical = len(want) - len(diffs)
+    print(f"[{label}] {identical}/{len(want)} streams token-identical"
+          + ("" if held else f" (reported, not held: "
+             f"{sum(d['within_rule'] for d in divergences)}/{len(diffs)} divergences "
+             f"within phase 5's rule)"), flush=True)
+    return identical
+
+
+def deepseek_serve(fa, serve, build_model, backend, cfg, paths, tag, dtype):
+    """Phase 22(b) or (c): ``cfg`` at full width, weights and KV cache in
+    ``dtype``, through ``ContinuousBatchingEngine`` built as the serve CLI's
+    ``--attn-impl auto`` builds it (the kernels, at max_seq 512), captured,
+    on each of ``paths`` (name, engine keywords, the decode kernel it must
+    launch); each path's streams compared with the plain path's (``naive``)
+    under ``moe_streams``: held in f32, reported in bf16, which is also
+    profiled. Returns (the JSON object, each path's launch counts)."""
+    import warnings
+    from repro_torch.models import attention, moe
+    f32 = dtype == torch.float32
+    impl = backend.auto_decode_impl(DEEPSEEK["max_seq"], device="cuda")
+    check(impl == "pallas", f"--attn-impl auto picked {impl} at max_seq {DEEPSEEK['max_seq']}")
+    model = build_model(cfg, impl=impl, param_dtype=dtype, device="cuda")
+    naive = build_model(cfg, impl="naive", param_dtype=dtype, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(model.generator(DEEPSEEK["seed"]))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _leaves(params))
+    weights_gb = sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reqs = deepseek_requests(serve, cfg.vocab_size)
+    mla = (f"MLA q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} nope "
+           f"{cfg.qk_nope_head_dim} rope {cfg.qk_rope_head_dim} v {cfg.v_head_dim}"
+           if cfg.use_mla else f"MHA hd {cfg.head_dim}")
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers ({cfg.first_k_dense} dense), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {mla}; {cfg.n_experts} routed experts top-"
+          f"{cfg.top_k} + {cfg.n_shared_experts} shared, d_ff {cfg.moe_d_ff}; "
+          f"{n_params / 1e9:.3f}B params (mtp {'mtp' in params}), {dtype} weights "
+          f"{weights_gb:.2f} GB (init {init_s:.1f} s, peak {init_peak_gb:.2f} GB); prompts "
+          f"{[len(r.prompt) for r in reqs]}", flush=True)
+    attention._MLA_PALLAS_WARNED = False
+    with torch.inference_mode(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        toks = torch.as_tensor(reqs[0].prompt[:64], device="cuda")[None]
+        lk, _ = model.prefill(params, {"tokens": toks})
+        ln, _ = naive.prefill(params, {"tokens": toks})
+    warned = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    check(bool(warned) == cfg.use_mla and all("chunked" in w for w in warned),
+          f"{cfg.name}: prefill warnings {warned}")
+    check(lk.shape == (1, 1, cfg.vocab_size) and lk.dtype == dtype
+          and bool(torch.isfinite(lk).all()), f"prefill logits {tuple(lk.shape)}")
+    prefill_diff = float((lk.float() - ln.float()).abs().max())
+    print(f"[{tag}] prefill of 64 tokens: pallas vs naive max |dlogit| {prefill_diff:.3g} "
+          f"({dtype} logits, top {float(lk.float().max()):.3g}); warned: {warned}",
+          flush=True)
+    kw = dict(max_batch=DEEPSEEK["slots"], max_seq=DEEPSEEK["max_seq"], cache_dtype=dtype)
+    run_engine(serve, model, params, reqs[:1], **kw)  # warm-up: cuBLAS, allocator
+    out, launches = {}, {}
+    for path, extra, kname in paths:
+        rs = shared_prefix_requests(serve, reqs) if "kv_layout" in extra else reqs
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        done, engine, wall = run_engine(serve, model, params, rs, **kw, **extra)
+        counts = launches[path] = fa.all_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = [engine._decode, engine._spec_decode]
+        replays = sum(getattr(f, "replays", 0) for f in steps)
+        check(counts[kname] > 0 and replays > 0,
+              f"{path}: {kname} launched {counts[kname]} times, {replays} replays")
+        check(next(iter(engine.cache.values())).dtype == dtype, f"{path}: cache not {dtype}")
+        check(sorted(done) == [r.uid for r in rs], f"{path}: requests missing")
+        check_tokens(path, engine, cfg.vocab_size)
+        fa.reset_launches()
+        done_n, engine_n, wall_n = run_engine(serve, naive, params, rs, **kw, **extra)
+        check(not any(fa.all_launches().values()), f"{path}: the plain path launched")
+        divergences = []
+        ident = moe_streams(
+            path, streams_of(done), streams_of(done_n),
+            lambda impl: recorded_moe_run(serve, moe, model if impl == "pallas" else naive,
+                                          params, rs, **kw, **extra),
+            divergences, held=f32)
+        st = engine.stats()
+        out[path] = {"tok_s": engine.tokens_out / wall, "wall_s": wall,
+                     "naive_tok_s": engine_n.tokens_out / wall_n,
+                     "tokens": engine.tokens_out, "decode_steps": engine.decode_steps,
+                     "replays": replays, "peak_memory_gb": peak_gb,
+                     "identical_streams": ident, "divergences": divergences,
+                     "launches": counts}
+        if "kv_layout" in extra:
+            out[path].update(prefill_chunks_skipped=st["prefill_chunks_skipped"],
+                             cow_copies=st["cow_copies"])
+        if "draft_depth" in extra:
+            out[path].update(acceptance=st.get("spec_acceptance"),
+                             spec_rounds=engine.spec_rounds)
+        print(f"[{tag}] {path}: {engine.tokens_out} tokens in {wall:.3f} s "
+              f"({engine.tokens_out / wall:.1f} tok/s captured; plain path "
+              f"{engine_n.tokens_out / wall_n:.1f}), {engine.decode_steps} steps, "
+              f"{replays} replays, peak {peak_gb:.2f} GB, {ident}/{len(rs)} streams "
+              f"identical to the plain path's, launches {counts}", flush=True)
+        del done, engine, done_n, engine_n
+    if not f32:
+        prof = profile_decode(serve, model, params, reqs, label=f", {cfg.name} bf16", **kw)
+        out["decode_step"] = {"host_ms": prof[0], "device_ms": prof[1],
+                              "attention_ms": prof[2]}
+    out.update(arch=cfg.name, dtype=str(dtype), layers=cfg.n_layers, params=n_params,
+               weights_gb=weights_gb,
+               init_s=init_s, init_peak_gb=init_peak_gb, prefill_warnings=warned,
+               prefill_max_abs_dlogit=prefill_diff,
+               **{k: DEEPSEEK[k] for k in ("slots", "requests", "gen", "max_seq")})
+    del model, naive, params, lk, ln
+    free_cuda()
+    return out, launches
+
+
+def deepseek_phase(fa, ref, serve, build_model, backend, get_config, gather):
+    """Phase 22: the MLA latent decode kernel at deepseek-v3's geometry (a);
+    deepseek-v3-671b at full width cut to 4 layers (its 3 dense MLA layers
+    and 1 MLA + MoE layer of 256 routed experts and 1 shared, the MTP head's
+    params; the whole model, 671B, does not fit one card), served contiguous
+    and paged (b); deepseek-moe-16b whole (28 layers), served contiguous,
+    paged and speculative, with the GQA kernels at G 1 hd 128 checked at its
+    geometry (c); (b) and (c) in bf16 (measured, streams reported) and in
+    f32 (streams held to ``moe_streams``). Returns (the JSON object, the
+    kernels' checks, each path's launch counts)."""
+    released = release_device_memory()
+    v3 = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=DEEPSEEK["v3_layers"])
+    checks = check_mla_kernels(fa, ref, gather, v3)
+    moe16b = get_config("deepseek-moe-16b")
+    dense = check_dense_kernels(fa, ref, gather, moe16b)
+    for c in (c for cs in list(checks.values()) + list(dense.values()) for c in cs):
+        check(c["ok"], f"kernel disagrees with its plain version: {c}")
+    paged_kw = dict(kv_layout="paged", block_size=PAGED["block_size"])
+    out, launches = {"released": released}, {}
+    for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        out["v3" + sfx], counts = deepseek_serve(
+            fa, serve, build_model, backend, v3,
+            [("v3_serve" + sfx, {}, "flash_decode_mla"),
+             ("v3_paged" + sfx, paged_kw, "flash_decode_mla_paged")], "deepseek-v3", dtype)
+        launches.update(counts)
+        release_device_memory()
+    for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        out["moe16b" + sfx], counts = deepseek_serve(
+            fa, serve, build_model, backend, moe16b,
+            [("moe16b_serve" + sfx, {}, "flash_decode"),
+             ("moe16b_paged" + sfx, paged_kw, "flash_decode_paged"),
+             ("moe16b_spec" + sfx, dict(draft_depth=PAGED["draft_depth"]),
+              "flash_decode_spec")], "deepseek-moe-16b", dtype)
+        launches.update(counts)
+        release_device_memory()
+    for name, cs in dense.items():
+        checks.setdefault(name, []).extend(cs)
+    return out, checks, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3932,6 +4489,10 @@ def main() -> int:
     obs_out, obs_launches = telemetry_phase(fa, serve, build_model, cfg, reqs,
                                             contig_streams, smi)
     lap("phase 21")
+    free_cuda()
+    deepseek_out, deepseek_checks, deepseek_launches = deepseek_phase(
+        fa, ref, serve, build_model, backend, get_config, gather_paged_kv)
+    lap("phase 22")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -4025,7 +4586,11 @@ def main() -> int:
         for p, counts in obs_launches.items():  # phase 21
             if counts.get(e["name"], 0):
                 e["launches_by_path"][p] = counts[e["name"]]
+        for p, counts in deepseek_launches.items():  # phase 22
+            if counts.get(e["name"], 0):
+                e["launches_by_path"][p] = counts[e["name"]]
         e["checks"] += dense_checks.get(e["name"], [])  # nemotron's geometry
+        e["checks"] += deepseek_checks.get(e["name"], [])  # deepseek-moe-16b's
         e["launches"] = sum(e["launches_by_path"].values())
     # the decode kernels' mixed-dtype instantiations (phase 3's checks,
     # phase 17's and 21(d)'s launches): a KV cache in another dtype than
@@ -4041,6 +4606,18 @@ def main() -> int:
                                              else "flash_decode_paged.cu"),
                   replaces[c["name"]], [c], by_path)
         kernels.append(e)
+    # the MLA latent decode (phase 22(a)'s checks, 22(b)'s launches), its
+    # bf16-cache check first: the serve path's dtype
+    for kname, ref_line in (("flash_decode_mla", ":438 (_decode_kernel, pallas_call at :536)"),
+                            ("flash_decode_mla_paged",
+                             ":551 (_decode_paged_kernel, pallas_call at :616)")):
+        by_path = {p: n[kname] for p, n in deepseek_launches.items() if n.get(kname)}
+        check(by_path, f"phase 22 launched no {kname}")
+        kernels.append(entry(
+            kname, "src/repro_torch/csrc/flash_decode_mla.cu",
+            f"src/repro/kernels/flash_attention.py{ref_line}, in the MLA latent geometry "
+            f"of src/repro/kernels/ops.py:" + ("77" if kname == "flash_decode_mla" else "147"),
+            deepseek_checks[kname], by_path))
     print(json.dumps({"serve": serve_out}))
     print(json.dumps({"train": dict(train_out, build_s=build_s, seconds=seconds,
                                     seconds_total=time.perf_counter() - t_start)}))
@@ -4054,6 +4631,7 @@ def main() -> int:
     print(json.dumps({"serve_sampled": sampled_out}))
     print(json.dumps({"dense": dense_out}))
     print(json.dumps({"obs": obs_out}))
+    print(json.dumps({"deepseek": deepseek_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

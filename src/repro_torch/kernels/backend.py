@@ -36,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every kernel library of the port, one per csrc/<name>.cu
 LIBRARIES = ("flash_fwd", "flash_bwd", "flash_decode_paged", "flash_decode_spec",
-             "depthwise_conv", "rmsnorm")
+             "flash_decode_mla", "depthwise_conv", "rmsnorm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}  # loaded libraries, one per source
 # cudaErrorInvalidDeviceFunction, cudaErrorNoKernelImageForDevice: what a

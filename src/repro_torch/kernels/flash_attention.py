@@ -5,6 +5,8 @@
   flash_decode_paged       csrc/flash_decode_paged.cu  replaces _decode_paged_kernel (paged decode)
   flash_decode_spec        csrc/flash_decode_spec.cu   replaces _spec_decode_kernel (speculative verify)
   flash_decode_spec_paged  csrc/flash_decode_spec.cu   replaces _spec_decode_paged_kernel (paged verify)
+  flash_decode_mla         csrc/flash_decode_mla.cu    replaces _decode_kernel in MLA's latent geometry
+  flash_decode_mla_paged   csrc/flash_decode_mla.cu    replaces _decode_paged_kernel in that geometry
 
 and ``kernels/flash_backward.py`` wraps the training backward's two,
 ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``).
@@ -34,10 +36,16 @@ kept f32 as a split pair of bf16 products; f32 inputs, with or without
 
 Launch plans are made here on the host, from shapes and the card's SM
 count only (``fwd_groups``, ``decode_plan``, ``decode_paged_plan``,
-``spec_plan``), so that no launch reads a tensor back: the FFMA forward's
-groups of warps a block, and the split of each row's keys across blocks in
-both decode kernels and the speculative verify (which also cuts its S*G
-rows into row blocks).
+``spec_plan``, ``decode_mla_plan``), so that no launch reads a tensor back:
+the FFMA forward's groups of warps a block, and the split of each row's keys
+across blocks in the decode kernels and the speculative verify (which also
+cuts its S*G rows into row blocks).
+
+The MLA latent decode (``flash_decode_mla``, ``flash_decode_mla_paged``)
+takes f32 queries only, as the reference casts them, and returns the f32
+latent context; its cache is f32 or bf16. ``_check_kernel_geometry`` stays
+the GQA decode kernels' guard: the latent geometry (G = H 128, hd 576,
+hdv 512) goes to its own kernel.
 
 ``flash_attention_mha`` is differentiable: ``_FlashMHA`` is the
 counterpart of the JAX package's ``_flash_mha`` custom_vjp. Its forward runs
@@ -59,12 +67,15 @@ import torch
 from repro_torch.kernels.backend import (attn_bf16, check_device, check_launch,
                                          load_library, sm_count, stream_args)
 from repro_torch.kernels.ref import (ref_flash_attention_fwd, ref_flash_decode,
+                                     ref_flash_decode_mla,
+                                     ref_flash_decode_mla_paged,
                                      ref_flash_decode_paged,
                                      ref_flash_decode_spec,
                                      ref_flash_decode_spec_paged)
 
 launches = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0,
-            "flash_decode_spec": 0, "flash_decode_spec_paged": 0}
+            "flash_decode_spec": 0, "flash_decode_spec_paged": 0,
+            "flash_decode_mla": 0, "flash_decode_mla_paged": 0}
 # the decode kernels' launches whose query and cache dtypes differ, by
 # "<kernel>:<q dtype>:<cache dtype>" (counted beside ``launches``): a bf16
 # cache under f32 queries is the bottom serving rung's
@@ -78,6 +89,8 @@ FWD_ROWS = 64      # query rows of a flash_fwd block, and keys of its tiles
 DECODE_CHUNK = 64  # positions a decode block stages at once
 DECODE_ROWS = 4    # query rows of a decode block (a row group)
 SPEC_ROWS = 24     # query rows of a flash_decode_spec block (a row block)
+MLA_ROWS = 32      # query rows of a flash_decode_mla block (a row group)
+MLA_BLOCK = 64     # positions of the contiguous latent cache's table entries
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
@@ -142,6 +155,19 @@ def _spec_lib():
     return lib
 
 
+@functools.cache
+def _mla_lib():
+    """The MLA latent decode's library: the contiguous and the paged entry."""
+    lib = load_library("flash_decode_mla")
+    lib.flash_decode_mla.argtypes = [_P] * 9 + [_I] * 5 + \
+        [ctypes.c_float] + [_I] * 5 + [_P]
+    lib.flash_decode_mla.restype = _I
+    lib.flash_decode_mla_paged.argtypes = [_P] * 10 + [_I] * 7 + \
+        [ctypes.c_float] + [_I] * 5 + [_P]
+    lib.flash_decode_mla_paged.restype = _I
+    return lib
+
+
 def fwd_block(block: int, n_q: int, BH: int) -> tuple:
     """(query tile, b*h) of block ``block`` of the FFMA forward's 1-D grid of
     ``n_q * BH`` blocks, as the kernel computes it: every head's last query
@@ -177,6 +203,17 @@ def decode_plan(Smax: int, rows: int, sms: int) -> tuple:
     ``DECODE_CHUNK`` positions, cut as ``decode_paged_plan`` cuts a table
     (``rows``: B*K*row groups)."""
     return decode_paged_plan(-(-Smax // DECODE_CHUNK), DECODE_CHUNK, rows, sms)
+
+
+def decode_mla_plan(T: int, rows: int, sms: int) -> tuple:
+    """(splits, bps) of the MLA latent decode: each of ``rows`` (B * row
+    groups of ``MLA_ROWS`` heads) block rows cut into ``splits`` blocks of
+    ``bps`` table entries (pool blocks, or ``MLA_BLOCK``-position blocks of
+    the contiguous cache), so that a full cache gives each SM about two
+    blocks (a block holds ~152 KB of shared memory: one resident an SM)."""
+    splits = max(1, min(T, -(-2 * sms // max(rows, 1))))
+    bps = -(-T // splits)
+    return -(-T // bps), bps
 
 
 def spec_plan(B: int, K: int, R: int, T: int, bs: int, sms: int) -> tuple:
@@ -648,3 +685,127 @@ def flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
                                            lengths, scale=scale, lowp=lowp)
     return _spec_launch("flash_decode_spec_paged", q, k_pool, v_pool, table, lengths,
                         scale, lowp)
+
+
+# ---------------------------------------------------------------------------
+# MLA decode in the latent space: K = 1, G = H query rows, keys
+# [latent | k_rope], values the latent itself
+# ---------------------------------------------------------------------------
+
+
+def _check_mla_inputs(what: str, q_lat, q_rope, latent, k_rope) -> None:
+    _check_no_grad(what, q_lat, q_rope, latent, k_rope)
+    if q_lat.dtype != torch.float32 or q_rope.dtype != torch.float32 or \
+            latent.dtype not in _DTYPES or k_rope.dtype != latent.dtype:
+        raise TypeError(f"{what} takes f32 queries (the reference casts them) "
+                        f"and an f32 or bf16 cache whose latent and k_rope share "
+                        f"one dtype, got q_lat {q_lat.dtype}, q_rope "
+                        f"{q_rope.dtype}, latent {latent.dtype}, k_rope "
+                        f"{k_rope.dtype}")
+    check_device(q_lat, q_rope, latent, k_rope)
+
+
+def _mla_launch(what: str, q_lat, q_rope, latent, k_rope, table, lengths,
+                scale: float, lowp: bool) -> torch.Tensor:
+    """Launch ``flash_decode_mla`` (``table`` None: the contiguous caches) or
+    ``flash_decode_mla_paged`` on CUDA tensors: its plan, the splits' f32
+    workspace and the arrival counts. Returns (B, H, r) f32."""
+    B, H, r = q_lat.shape
+    rd = q_rope.shape[-1]
+    paged = table is not None
+    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
+    latent, k_rope = latent.contiguous(), k_rope.contiguous()
+    out = torch.empty((B, H, r), dtype=torch.float32, device=q_lat.device)
+    if out.numel() == 0:
+        return out
+    lib = _mla_lib()
+    device, stream = stream_args(q_lat)
+    rows = B * -(-H // MLA_ROWS)  # block rows: (b, row group)
+    if paged:
+        T, bs = table.shape[1], latent.shape[1]
+    else:
+        T = -(-latent.shape[1] // MLA_BLOCK)
+    splits, bps = decode_mla_plan(T, rows, sm_count(device))
+    ws = [None, None, None]
+    if splits > 1:  # each split's f32 partial, written before it is read: no fill
+        n = rows * splits * MLA_ROWS
+        ws = [torch.empty(n * 2, dtype=torch.float32, device=q_lat.device),
+              torch.empty(n * r, dtype=torch.float32, device=q_lat.device),
+              _arrivals(device, stream, rows)]
+    ptrs = [q_lat.data_ptr(), q_rope.data_ptr(), latent.data_ptr(),
+            k_rope.data_ptr()] + ([table.data_ptr()] if paged else []) + \
+        [lengths.data_ptr(), out.data_ptr()] + \
+        [None if w is None else w.data_ptr() for w in ws]
+    dims = [B, H] + ([latent.shape[0], bs, T] if paged else [latent.shape[1]]) + [r, rd]
+    fn = lib.flash_decode_mla_paged if paged else lib.flash_decode_mla
+    rc = fn(*ptrs, *dims, float(scale), splits, bps,
+            int(latent.dtype == torch.bfloat16), int(lowp), device, stream)
+    check_launch(lib, rc, what)
+    launches[what] += 1
+    return out
+
+
+def flash_decode_mla(q_lat, q_rope, latent, k_rope, lengths, *, scale: float,
+                     lowp: Optional[bool] = None):
+    """Absorbed-matrix MLA decode in the latent space, over ragged caches.
+
+    q_lat: (B, H, r) f32 — the new token's queries absorbed through W_UK;
+    q_rope: (B, H, rd) f32. latent: (B, Smax, r), k_rope: (B, Smax, rd) —
+       the latent caches, f32 or bf16 (one dtype), read in place.
+    lengths: (B,) int or a scalar — row b attends positions
+       < min(lengths[b], Smax); rows with length 0 return zeros.
+
+    Keys are [latent | k_rope], values the latent itself, the softmax scale
+    explicit (``1/sqrt(nope + rope)``): the reference's
+    ``ops.decode_attention_mla``, which runs ``_decode_kernel`` at K = 1,
+    G = H on a concatenated copy of the cache; the kernel builds no copy.
+    Returns the latent context (B, H, r) f32.
+    """
+    B, H, r = q_lat.shape
+    rd = q_rope.shape[-1]
+    Smax = latent.shape[1]
+    if q_rope.shape[:2] != (B, H) or latent.shape != (B, Smax, r) or \
+            k_rope.shape != (B, Smax, rd):
+        raise ValueError(f"q_lat {tuple(q_lat.shape)} / q_rope "
+                         f"{tuple(q_rope.shape)} do not match latent "
+                         f"{tuple(latent.shape)} / k_rope {tuple(k_rope.shape)}")
+    _check_mla_inputs("flash_decode_mla", q_lat, q_rope, latent, k_rope)
+    lowp = attn_bf16(lowp)
+    lengths = _lengths(lengths, B, q_lat.device)
+    if q_lat.device.type == "cpu":
+        return ref_flash_decode_mla(q_lat, q_rope, latent, k_rope, lengths,
+                                    scale=scale, lowp=lowp)
+    return _mla_launch("flash_decode_mla", q_lat, q_rope, latent, k_rope, None,
+                       lengths, scale, lowp)
+
+
+def flash_decode_mla_paged(q_lat, q_rope, latent_pool, k_rope_pool, block_table,
+                           lengths, *, scale: float, lowp: Optional[bool] = None):
+    """Absorbed-matrix MLA decode over paged latent pools.
+
+    q_lat, q_rope as in ``flash_decode_mla``; latent_pool: (num_blocks,
+    block_size, r), k_rope_pool: (num_blocks, block_size, rd) — physical
+    blocks shared by all sequences; block_table: (B, T) int32 (entries
+    clamped to [0, num_blocks - 1]); lengths: (B,) int32, clamped to
+    T * block_size. The math of ``flash_decode_mla`` on the contiguous
+    caches the table describes, summed in another order. Returns (B, H, r)
+    f32.
+    """
+    B, H, r = q_lat.shape
+    rd = q_rope.shape[-1]
+    NB, bs = latent_pool.shape[0], latent_pool.shape[1]
+    if q_rope.shape[:2] != (B, H) or latent_pool.shape != (NB, bs, r) or \
+            k_rope_pool.shape != (NB, bs, rd):
+        raise ValueError(f"q_lat {tuple(q_lat.shape)} / q_rope "
+                         f"{tuple(q_rope.shape)} do not match pools "
+                         f"{tuple(latent_pool.shape)} / {tuple(k_rope_pool.shape)}")
+    _check_mla_inputs("flash_decode_mla_paged", q_lat, q_rope, latent_pool, k_rope_pool)
+    lowp = attn_bf16(lowp)
+    lengths = _lengths(lengths, B, q_lat.device)
+    table = _table(block_table, B, q_lat.device)
+    if q_lat.device.type == "cpu":
+        return ref_flash_decode_mla_paged(q_lat, q_rope, latent_pool, k_rope_pool,
+                                          table.clamp(0, NB - 1), lengths,
+                                          scale=scale, lowp=lowp)
+    return _mla_launch("flash_decode_mla_paged", q_lat, q_rope, latent_pool,
+                       k_rope_pool, table, lengths, scale, lowp)

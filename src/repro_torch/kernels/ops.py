@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.depthwise_conv import depthwise_conv as _dw
 from repro_torch.kernels.flash_attention import (flash_attention_mha, flash_decode,
+                                                 flash_decode_mla,
+                                                 flash_decode_mla_paged,
                                                  flash_decode_paged,
                                                  flash_decode_spec,
                                                  flash_decode_spec_paged)
@@ -61,6 +63,32 @@ def decode_attention(q, k, v, lengths):
     qg = q.reshape(B, K, H // K, hd)  # (B,1,H,hd) -> grouped, same head order
     out = flash_decode(qg, k, v, lengths)
     return out.reshape(B, 1, H, v.shape[-1])
+
+
+def decode_attention_mla(q_lat, q_rope, latent, k_rope, lengths, *, scale: float):
+    """Absorbed-matrix MLA decode in the latent space, fused.
+
+    q_lat: (B, 1, H, r) query absorbed through W_UK; q_rope: (B, 1, H, rd),
+    both f32. latent: (B, Smax, r) cache; k_rope: (B, Smax, rd) cache.
+
+    Keys are [latent | k_rope] and values are the latent itself (one KV head
+    for all H query rows), with an explicit softmax scale (1/sqrt(nope+rope),
+    not 1/sqrt(r+rope)). The kernel reads the two caches in place, where the
+    reference concatenates a copy. Returns the latent-space context
+    (B, 1, H, r) f32; the caller applies W_UV.
+    """
+    return flash_decode_mla(q_lat[:, 0], q_rope[:, 0], latent, k_rope, lengths,
+                            scale=scale)[:, None]
+
+
+def decode_attention_mla_paged(q_lat, q_rope, latent_pool, k_rope_pool,
+                               block_table, lengths, *, scale: float):
+    """Absorbed-matrix MLA decode over paged latent pools: latent_pool
+    (num_blocks, block_size, r), k_rope_pool (..., rd), block_table (B, T).
+    Returns (B, 1, H, r) f32, as ``decode_attention_mla``."""
+    return flash_decode_mla_paged(q_lat[:, 0], q_rope[:, 0], latent_pool,
+                                  k_rope_pool, block_table, lengths,
+                                  scale=scale)[:, None]
 
 
 def decode_attention_paged(q, k_pool, v_pool, block_table, lengths):

@@ -189,6 +189,33 @@ def ref_flash_decode_spec_paged(q, k_pool, v_pool, block_table, lengths, *,
                                  scale=scale, lowp=lowp)
 
 
+def ref_flash_decode_mla(q_lat, q_rope, latent, k_rope, lengths, *, scale: float,
+                         lowp: bool = False):
+    """MLA decode in the latent space over contiguous caches, as the
+    reference's ``ops.decode_attention_mla`` computes it: keys the
+    concatenation [latent | k_rope] (a copy of the cache), values the
+    latent, one KV head for all H query rows, then ``ref_flash_decode``.
+
+    q_lat: (B,H,r); q_rope: (B,H,rd); latent: (B,Smax,r); k_rope:
+    (B,Smax,rd); lengths: (B,) int. Returns (B,H,r) in q_lat's dtype.
+    """
+    q = torch.cat([q_lat, q_rope.to(q_lat.dtype)], -1)[:, None]   # (B,1,H,r+rd)
+    kv = torch.cat([latent, k_rope.to(latent.dtype)], -1)[:, :, None]
+    return ref_flash_decode(q, kv, latent[:, :, None], lengths, scale=scale,
+                            lowp=lowp)[:, 0]
+
+
+def ref_flash_decode_mla_paged(q_lat, q_rope, latent_pool, k_rope_pool,
+                               block_table, lengths, *, scale: float,
+                               lowp: bool = False):
+    """``ref_flash_decode_mla`` over the contiguous caches a (clipped) block
+    table describes: pools (NB,bs,r) and (NB,bs,rd), table (B,T)."""
+    return ref_flash_decode_mla(q_lat, q_rope,
+                                gather_paged_kv(latent_pool, block_table),
+                                gather_paged_kv(k_rope_pool, block_table),
+                                lengths, scale=scale, lowp=lowp)
+
+
 def ref_rmsnorm(x, scale, eps: float = 1e-5):
     """x: (..., d); scale: (d,). ``x * rsqrt(mean(x^2) + eps) * scale`` with
     the statistic in f32, returned in x's dtype."""

@@ -66,6 +66,16 @@ kernel (contig) and decode attention through the flash-decode kernels
 prefill attention is plain torch, as in the reference. ``auto`` consults
 ``kernels/backend.auto_decode_impl``.
 
+Families (``ENGINE_FAMILIES``, the reference's): the dense decoders and the
+moe family (deepseek-moe-16b, deepseek-v3-671b). Under MLA (deepseek-v3)
+decode runs the latent-space kernels (``flash_decode_mla``,
+``flash_decode_mla_paged``), prefill warns once and takes the chunked path
+(the flash forward takes one head dim), and there is no verify step, so a
+draft depth decodes one token a step. A moe layer's capacity counts every
+token of a call, idle and retired slots' and bucketed prefill's padding
+included, as in the reference: streams match the JAX engine's under the
+same schedule.
+
 Graceful degradation and the serving rungs (``engine.jobs.ServeJob``
 migrates these live): a queued request past its ``deadline_steps`` is
 rejected with ``"timeout"``; ``drain()`` refuses new work (``"draining"``)
@@ -123,6 +133,8 @@ from repro_torch.models.registry import build_model, rebuild_model
 from repro_torch.paging import BlockPoolExhausted, PagedKVCache
 from repro_torch.spec.verify import greedy_verify, rejection_verify
 
+# the families the continuous-batching engine serves (the reference's)
+ENGINE_FAMILIES = ("dense", "moe")
 
 @dataclasses.dataclass
 class Request:
@@ -184,9 +196,10 @@ class ContinuousBatchingEngine:
                  max_queue: Optional[int] = None, prefix_cache: bool = True,
                  swap_grace: int = 2, draft_depth: int = 0,
                  draft_source=None, jit: bool = True):
-        if model.cfg.family != "dense":
-            raise ValueError(f"continuous batching is ported for the dense "
-                             f"family, got {model.cfg.family!r}")
+        if model.cfg.family not in ENGINE_FAMILIES:
+            raise ValueError(f"continuous batching needs a slotted KV cache; "
+                             f"family {model.cfg.family!r} is served by the "
+                             f"reference's lockstep path, not ported yet")
         if kv_layout not in ("contig", "paged"):
             raise ValueError(f"kv_layout must be contig|paged, got {kv_layout!r}")
         if admission_policy not in ("serialize", "shed", "swap"):
@@ -318,12 +331,13 @@ class ContinuousBatchingEngine:
             self._prefill_chunk = build_paged_prefill_step(model)
             self._prefill_chunk_ro = build_paged_prefill_step(model,
                                                               write=False)
-            self._spec_decode = build_paged_spec_decode_step(model,
-                                                             jit=self.jit)
+            self._spec_decode = build_paged_spec_decode_step(model, jit=self.jit) \
+                if model.paged_spec_decode_step is not None else None
         else:
             self._decode = build_decode_step(model, jit=self.jit,
                                              sampler=self._sampler)
-            self._spec_decode = build_spec_decode_step(model, jit=self.jit)
+            self._spec_decode = build_spec_decode_step(model, jit=self.jit) \
+                if model.spec_decode_step is not None else None
 
     # -- request lifecycle -------------------------------------------------
 
@@ -834,8 +848,9 @@ class ContinuousBatchingEngine:
     def _spec_k(self, active: List[int]) -> int:
         """Effective draft depth this step: the configured depth clamped so
         the verify window never writes past the cache and never allocates
-        past a paged reservation. 0 falls back to the one-token step."""
-        if self.draft_depth < 1 or self.draft is None:
+        past a paged reservation. 0 falls back to the one-token step, as it
+        does for a model without a verify step (MLA)."""
+        if self.draft_depth < 1 or self.draft is None or self._spec_decode is None:
             return 0
         k = min(self.draft_depth,
                 self.max_seq - 1 - max(int(self.cache_len[s]) for s in active),

@@ -9,9 +9,11 @@ controller and migrates in place when interference appears;
 (``start:stop:slowdown[,...]``) and ``--thermal-trace`` closed-loop thermal
 throttling (``heat:cool:slowdown[:trigger:release]``, paper §3.3) so the
 adaptive path can be exercised on a quiet machine. ``--arch`` accepts any
-registry config the port has: the dense family (``llama3.2-1b``,
+registry config the port trains: the dense family (``llama3.2-1b``,
 ``granite-3-2b``, ``nemotron-4-15b``, ``command-r-35b``) and the paper's CNNs ``resnet34``, ``mobilenet-v2`` and ``shufflenet-v2`` (trained on
-synthetic images; ``--seq`` is unused). A CNN trains on the plain path
+synthetic images; ``--seq`` is unused). The moe family (deepseek) serves
+but does not train yet, and is refused here
+(``models/transformer.check_trainable``). A CNN trains on the plain path
 (``--attn-impl naive``, which ``auto`` picks at the default ``--seq``): the
 depthwise kernel that ``pallas`` selects has no gradient, as in the
 reference, and its first backward raises. With ``--adaptive`` a CNN stops
@@ -44,6 +46,7 @@ from repro_torch.engine.events import InterferenceTrace, ThermalTrace
 from repro_torch.engine.rungs import Rung, default_rung_ladder
 from repro_torch.engine.session import TrainSession
 from repro_torch.kernels.backend import auto_attn_impl, resolve_device
+from repro_torch.models.transformer import check_trainable
 from repro_torch.optim.compression import Compressor
 from repro_torch.optim.optimizers import adam, sgd
 
@@ -112,6 +115,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_trainable(cfg)
     impl = args.attn_impl
     if impl == "auto":
         impl = auto_attn_impl(args.seq, device=device)

@@ -11,17 +11,21 @@ package's impl names:
 
 Decode runs over the contiguous (B, Smax, K, hd) cache or a paged
 (num_blocks, block_size, K, hd) pool addressed through a (B, T) block table,
-one token at a time or a speculative window of S at once. The MLA and
-cross-attention paths of the JAX package are not ported yet.
+one token at a time or a speculative window of S at once. MLA (deepseek-v3)
+keeps a latent cache ({"latent", "k_rope"}: (B, Smax, r|rd), or paged
+(num_blocks, block_size, r|rd)) and decodes in the latent space, with the
+absorbed query. The cross-attention path of the JAX package is not ported
+yet.
 """
 from __future__ import annotations
 
 import math
 import os
+import warnings
 
 import torch
 
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_norm, apply_rope, dense_init
 from repro_torch.paging.paged_cache import gather_paged_kv
 
 NEG_INF = -1e30
@@ -40,6 +44,28 @@ def gqa_params(gen: torch.Generator, cfg, dtype=torch.float32):
         "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype,
                          scale=1.0 / math.sqrt(cfg.n_heads * hd)),
     }
+
+
+def mla_params(gen: torch.Generator, cfg, dtype=torch.float32):
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    dev = gen.device
+    return {
+        "wq_a": dense_init(gen, cfg.d_model, cfg.q_lora_rank, dtype),
+        "q_norm": {"scale": torch.ones((cfg.q_lora_rank,), dtype=dtype, device=dev)},
+        "wq_b": dense_init(gen, cfg.q_lora_rank, cfg.n_heads * qk_dim, dtype),
+        "wkv_a": dense_init(gen, cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                            dtype),
+        "kv_norm": {"scale": torch.ones((cfg.kv_lora_rank,), dtype=dtype, device=dev)},
+        "wkv_b": dense_init(gen, cfg.kv_lora_rank,
+                            cfg.n_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim), dtype),
+        "wo": dense_init(gen, cfg.n_heads * cfg.v_head_dim, cfg.d_model, dtype),
+    }
+
+
+def attn_params(gen: torch.Generator, cfg, dtype=torch.float32):
+    if cfg.use_mla:
+        return mla_params(gen, cfg, dtype)
+    return gqa_params(gen, cfg, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -442,4 +468,204 @@ def gqa_decode_spec_paged(p, x, cache, cache_len, block_table, cfg, *,
                               gather_paged_kv(cache["v"], block_table),
                               causal=True, q_offset=cl)
     y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3): latent KV cache; decode uses the absorbed form
+# ---------------------------------------------------------------------------
+
+_MLA_PALLAS_WARNED = False  # one-time impl-fallback warning (mla_forward)
+
+
+def _mla_qkv(p, x, cfg, positions):
+    """q_nope (B,S,H,nope), q_rope (B,S,H,rd) roped, the normalised latent
+    (B,S,r) and k_rope (B,S,rd) roped."""
+    B, S, _ = x.shape
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm") @ p["wq_b"]
+    q = q.reshape(B, S, cfg.n_heads, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    kv_a = x @ p["wkv_a"]
+    latent = apply_norm(p["kv_norm"], kv_a[..., :cfg.kv_lora_rank], "rmsnorm")
+    k_rope = kv_a[..., cfg.kv_lora_rank:].reshape(B, S, 1, rope_d)
+    if positions is not None:
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope, latent, k_rope[..., 0, :]
+
+
+def _mla_heads(q_nope, q_rope, latent, k_rope, wkv_b, cfg):
+    """Per-head q (B,Sq,H,nope+rd), k (B,S,H,nope+rd) and v (B,S,H,v) from
+    the latents, the ``latent @ wkv_b`` expansion the prefill paths share."""
+    B, S = latent.shape[:2]
+    nope, v_dim = cfg.qk_nope_head_dim, cfg.v_head_dim
+    kv = (latent @ wkv_b).reshape(B, S, cfg.n_heads, nope + v_dim)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, cfg.n_heads, k_rope.shape[-1]).to(k_nope.dtype)], -1)
+    return torch.cat([q_nope, q_rope], -1), k, v
+
+
+def mla_forward(p, x, cfg, *, positions, impl="chunked", chunk=1024,
+                return_cache=False):
+    """MLA self-attention over x: (B,S,d). Returns y, and the layer's
+    {"latent", "k_rope"} cache entries (B,S,r|rd) when ``return_cache``.
+
+    Under ``impl="pallas"`` the flash forward cannot run (it takes one head
+    dim for q, k and v, and MLA's qk dim nope + rope differs from v_dim), so
+    prefill and training take the chunked online-softmax path, with the
+    reference's one-time ``RuntimeWarning``. Decode has its own latent-space
+    kernel (``mla_decode``).
+    """
+    B, S, _ = x.shape
+    nope, v_dim = cfg.qk_nope_head_dim, cfg.v_head_dim
+    if impl == "pallas" and nope + cfg.qk_rope_head_dim != v_dim:
+        global _MLA_PALLAS_WARNED
+        if not _MLA_PALLAS_WARNED:
+            _MLA_PALLAS_WARNED = True
+            warnings.warn(
+                f"MLA prefill cannot use impl='pallas' (qk head dim "
+                f"{nope + cfg.qk_rope_head_dim} != v head dim {v_dim}); "
+                f"falling back to 'chunked'. Decode still uses the fused "
+                f"latent-space kernel.", RuntimeWarning, stacklevel=2)
+        impl = "chunked"
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, positions)
+    q, k, v = _mla_heads(q_nope, q_rope, latent, k_rope, p["wkv_b"], cfg)
+    out = attention_impl(q, k, v, causal=True, impl=impl, chunk=chunk)
+    y = out.reshape(B, S, cfg.n_heads * v_dim) @ p["wo"]
+    if return_cache:
+        return y, {"latent": latent, "k_rope": k_rope}
+    return y
+
+
+def init_mla_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+                   device="cpu"):
+    return {"latent": torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dtype,
+                                  device=device),
+            "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim), dtype=dtype,
+                                  device=device)}
+
+
+def init_mla_pool(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
+                  device="cpu"):
+    return {"latent": torch.zeros((num_blocks, block_size, cfg.kv_lora_rank),
+                                  dtype=dtype, device=device),
+            "k_rope": torch.zeros((num_blocks, block_size, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def _mla_naive_latent_ctx(q_lat, q_rope, lat, kr, kv_len, scale):
+    """Latent-space attention oracle shared by the contiguous and paged
+    decode paths: scores = q_lat . latent + q_rope . k_rope, values = latent.
+    Returns the (B, 1, H, r) f32 context."""
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), lat.float())
+         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())) * scale
+    kv_idx = torch.arange(lat.shape[1], device=lat.device)
+    kv_len = torch.as_tensor(kv_len, device=lat.device)
+    if kv_len.dim() > 0:  # ragged continuous batch
+        valid = (kv_idx[None] < kv_len[:, None])[:, None, None]
+    else:
+        valid = (kv_idx < kv_len)[None, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqs,bsr->bqhr", probs, lat.float())
+
+
+def _mla_absorbed_q(p, q_nope, cfg):
+    """Absorb W_UK into the query; returns (q_lat (B,1,H,r) f32, w_uv)."""
+    nope, v_dim = cfg.qk_nope_head_dim, cfg.v_head_dim
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads, nope + v_dim)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
+    return q_lat, w_uv
+
+
+def _mla_out(p, ctx, w_uv, x, cfg):
+    """(ctx (B,1,H,r) . W_UV) -> wo, in x's dtype."""
+    B = x.shape[0]
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.float()).to(x.dtype)
+    return out.reshape(B, 1, cfg.n_heads * cfg.v_head_dim) @ p["wo"]
+
+
+def mla_decode(p, x, cache, cache_len, cfg, *, impl: str = "naive"):
+    """Absorbed-matrix MLA decode: attention runs in the latent space.
+
+    scores = q_nope . W_UK^T . latent  +  q_rope . k_rope
+    out    = (probs . latent) . W_UV -> wo
+    x: (B,1,d); cache {"latent" (B,Smax,r), "k_rope" (B,Smax,rd)}, updated
+    in place and returned. ``cache_len`` scalar or (B,); ``impl="pallas"``
+    runs the latent-space decode kernel (``flash_decode_mla``).
+    """
+    B = x.shape[0]
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    pos = _window_positions(cache_len, B, 1, x.device).to(torch.int32)
+    q_nope, q_rope, latent_new, k_rope_new = _mla_qkv(p, x, cfg, pos)
+    _scatter_token(cache["latent"], latent_new, cache_len)
+    _scatter_token(cache["k_rope"], k_rope_new, cache_len)
+    q_lat, w_uv = _mla_absorbed_q(p, q_nope, cfg)
+    lengths = torch.as_tensor(cache_len, device=x.device) + 1
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        ctx = kops.decode_attention_mla(q_lat, q_rope.float(), cache["latent"],
+                                        cache["k_rope"], lengths, scale=scale)
+    else:
+        ctx = _mla_naive_latent_ctx(q_lat, q_rope, cache["latent"], cache["k_rope"],
+                                    lengths, scale)
+    return _mla_out(p, ctx, w_uv, x, cfg), cache
+
+
+def mla_decode_paged(p, x, cache, cache_len, block_table, cfg, *,
+                     impl: str = "naive"):
+    """Absorbed-matrix MLA decode over paged latent pools.
+
+    cache: {"latent": (num_blocks, block_size, r), "k_rope": (num_blocks,
+    block_size, rd)} shared physical blocks, updated in place;
+    ``block_table`` (B, T) int. Same latent-space math as :func:`mla_decode`,
+    with the per-sequence cache reached through the table (gathered for
+    ``naive``, read through it by the kernel for ``pallas``).
+    """
+    B = x.shape[0]
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    pos = _window_positions(cache_len, B, 1, x.device).to(torch.int32)
+    q_nope, q_rope, latent_new, k_rope_new = _mla_qkv(p, x, cfg, pos)
+    _scatter_token_paged(cache["latent"], latent_new, cache_len, block_table)
+    _scatter_token_paged(cache["k_rope"], k_rope_new, cache_len, block_table)
+    q_lat, w_uv = _mla_absorbed_q(p, q_nope, cfg)
+    lengths = torch.as_tensor(cache_len, device=x.device) + 1
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        ctx = kops.decode_attention_mla_paged(q_lat, q_rope.float(), cache["latent"],
+                                              cache["k_rope"], block_table, lengths,
+                                              scale=scale)
+    else:
+        ctx = _mla_naive_latent_ctx(q_lat, q_rope,
+                                    gather_paged_kv(cache["latent"], block_table),
+                                    gather_paged_kv(cache["k_rope"], block_table),
+                                    lengths, scale)
+    return _mla_out(p, ctx, w_uv, x, cfg), cache
+
+
+def mla_prefill_paged(p, x, cache, start: int, block_table, cfg, *,
+                      write: bool = True):
+    """One chunk of paged MLA prefill over latent pools.
+
+    Ingests the chunk's normalised latent and rope key into the pools (in
+    place), then reconstructs per-head K/V from the gathered latents (the
+    same ``latent @ wkv_b`` expansion :func:`mla_forward` uses, in f32 as
+    the reference computes it here) and attends causally with ``q_offset``
+    ``start``. ``write=False``, as in :func:`gqa_prefill_paged`: a read-only
+    recompute on a full prefix hit.
+    """
+    B, C, _ = x.shape
+    pos = (int(start) + torch.arange(C, dtype=torch.int32, device=x.device))
+    q_nope, q_rope, latent_new, k_rope_new = _mla_qkv(p, x, cfg, pos[None].expand(B, C))
+    if write:
+        _scatter_chunk_paged(cache["latent"], latent_new, start, block_table)
+        _scatter_chunk_paged(cache["k_rope"], k_rope_new, start, block_table)
+    lat = gather_paged_kv(cache["latent"], block_table).float()
+    kr = gather_paged_kv(cache["k_rope"], block_table).float()
+    q, k, v = _mla_heads(q_nope, q_rope, lat, kr, p["wkv_b"].float(), cfg)
+    out = naive_attention(q, k, v, causal=True, q_offset=int(start))
+    y = out.reshape(B, C, cfg.n_heads * cfg.v_head_dim) @ p["wo"]
     return y, cache

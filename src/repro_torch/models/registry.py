@@ -1,9 +1,11 @@
 """Model API over the ported families.
 
 ``build_model(cfg)`` returns a ``Model`` whose functions take params and
-inputs and return tensors, as the JAX package's do. The dense decoder and
-the CNN family (``family="cnn"``: init, forward and loss only; its serving
-fields are None, as in the reference) are ported; other families raise.
+inputs and return tensors, as the JAX package's do. The dense and moe
+decoders and the CNN family (``family="cnn"``: init, forward and loss only;
+its serving fields are None, as in the reference) are ported; other
+families raise. Under MLA the speculative steps are None, as in the
+reference; a moe model's ``loss`` raises until the moe training slice.
 """
 from __future__ import annotations
 
@@ -57,13 +59,13 @@ def rebuild_model(model: Model, **overrides) -> Model:
 
 def build_model(cfg: ModelConfig, *, impl: str = "chunked", chunk: int = 1024,
                 remat: str = "none", param_dtype=torch.float32,
-                device="cuda") -> Model:
-    if cfg.family not in ("dense", "cnn"):
+                moe_cf: float = 1.25, device="cuda") -> Model:
+    if cfg.family not in ("dense", "moe", "cnn"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     dev = resolve_device(device)
     kw = dict(impl=impl, chunk=chunk, remat=remat, param_dtype=param_dtype,
-              device=dev)
+              moe_cf=moe_cf, device=dev)
     if cfg.family == "cnn":
         # the depthwise kernel with impl="pallas", the plain path otherwise
         cnn_impl = "pallas" if impl == "pallas" else "naive"
@@ -80,14 +82,17 @@ def build_model(cfg: ModelConfig, *, impl: str = "chunked", chunk: int = 1024,
     def prefill(p, b):
         return transformer.prefill_decoder(p, cfg, b["tokens"], impl=impl,
                                            chunk=chunk,
-                                           last_pos=b.get("last_pos"))
+                                           last_pos=b.get("last_pos"),
+                                           moe_cf=moe_cf)
 
+    spec = not cfg.use_mla  # MLA has no verify window, as in the reference
     return Model(
         cfg=cfg,
         device=dev,
         init=lambda gen: transformer.init_decoder(gen, cfg, param_dtype),
         forward=lambda p, b: transformer.forward_decoder(
-            p, cfg, b["tokens"], impl=impl, chunk=chunk, remat=remat)[0],
+            p, cfg, b["tokens"], impl=impl, chunk=chunk, remat=remat,
+            moe_cf=moe_cf)[0],
         loss=lambda p, b: transformer.loss_decoder(p, cfg, b, impl=impl,
                                                    chunk=chunk, remat=remat),
         prefill=prefill,
@@ -95,24 +100,26 @@ def build_model(cfg: ModelConfig, *, impl: str = "chunked", chunk: int = 1024,
             transformer.init_cache_decoder(cfg, batch, max_len, dtype, dev),
         decode_step=lambda p, cache, tokens, cache_len:
             transformer.decode_step_decoder(p, cfg, cache, tokens, cache_len,
-                                            impl=impl),
+                                            impl=impl, moe_cf=moe_cf),
         init_paged_cache=lambda num_blocks, block_size, dtype=torch.bfloat16:
             transformer.init_paged_cache_decoder(cfg, num_blocks, block_size,
                                                  dtype, dev),
         paged_decode_step=lambda p, cache, tokens, cache_len, block_table:
             transformer.decode_step_decoder(p, cfg, cache, tokens, cache_len,
-                                            impl=impl,
+                                            impl=impl, moe_cf=moe_cf,
                                             block_table=block_table),
         paged_prefill_step=lambda p, cache, tokens, start, block_table,
         last_pos=None, write=True: transformer.paged_prefill_step_decoder(
             p, cfg, cache, tokens, start, block_table, last_pos=last_pos,
-            write=write),
-        spec_decode_step=lambda p, cache, tokens, cache_len:
-            transformer.spec_decode_step_decoder(p, cfg, cache, tokens,
-                                                 cache_len, impl=impl),
-        paged_spec_decode_step=lambda p, cache, tokens, cache_len, block_table:
-            transformer.spec_decode_step_decoder(p, cfg, cache, tokens,
-                                                 cache_len, impl=impl,
-                                                 block_table=block_table),
+            write=write, moe_cf=moe_cf),
+        spec_decode_step=(lambda p, cache, tokens, cache_len:
+                          transformer.spec_decode_step_decoder(
+                              p, cfg, cache, tokens, cache_len, impl=impl,
+                              moe_cf=moe_cf)) if spec else None,
+        paged_spec_decode_step=(lambda p, cache, tokens, cache_len, block_table:
+                                transformer.spec_decode_step_decoder(
+                                    p, cfg, cache, tokens, cache_len, impl=impl,
+                                    moe_cf=moe_cf, block_table=block_table))
+        if spec else None,
         build_kwargs=kw,
     )

@@ -10,33 +10,58 @@ zero-filled gradient the size of the whole stacked leaf for every layer
 checkpoints each block as the reference's ``jax.checkpoint`` policies do
 (``_maybe_remat``). The KV cache keeps the JAX layout too: ``{"k", "v"}``
 of shape (L, B, Smax, K, hd), so the tests compare caches directly; the
-paged layout keeps its (L, num_blocks, block_size, K, hd) pools. The MoE,
-VLM, SSM and hybrid families are not ported yet.
+paged layout keeps its (L, num_blocks, block_size, K, hd) pools.
+
+The moe family (deepseek) splits the stack as the reference's ``scan``s do:
+``params["dense_layers"]`` holds the first ``first_k_dense`` layers (an MLP
+of ``dense_d_ff``), ``params["layers"]`` the MoE layers, and
+``params["mtp"]`` the multi-token-prediction head (its params only: the
+loss that reads it waits for the moe training slice). Under MLA
+(deepseek-v3) the cache is {"latent", "k_rope"} of shape (L, B, Smax, r|rd),
+or (L, num_blocks, block_size, r|rd) pools. The VLM, SSM and hybrid
+families are not ported yet.
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from repro_torch.models.attention import (gqa_decode, gqa_decode_paged,
-                                          gqa_decode_spec,
+from repro_torch.models.attention import (attn_params, gqa_decode,
+                                          gqa_decode_paged, gqa_decode_spec,
                                           gqa_decode_spec_paged, gqa_forward,
-                                          gqa_params, gqa_prefill_paged,
-                                          init_gqa_cache, init_gqa_pool)
+                                          gqa_prefill_paged, init_gqa_cache,
+                                          init_gqa_pool, init_mla_cache,
+                                          init_mla_pool, mla_decode,
+                                          mla_decode_paged, mla_forward,
+                                          mla_prefill_paged)
 from repro_torch.models.common import (apply_mlp, apply_norm, cross_entropy,
                                        dense_init, embed_tokens, mlp_params,
                                        norm_params)
+from repro_torch.models.moe import apply_moe, moe_params
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.use_mla or cfg.is_moe:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} (mla={cfg.use_mla}, moe={cfg.is_moe}) is "
-            f"not yet ported to repro_torch; the dense GQA decoder is")
+            f"family {cfg.family!r} is not yet ported to repro_torch; the dense "
+            f"and moe decoders are")
+
+
+# what the train CLI, Rung and loss_decoder say to a moe config
+MOE_TRAINING = ("training of the moe family (loss_decoder's router aux and MTP "
+                "terms, and the train step and session on them) is not ported "
+                "yet: it is the port's next slice; the moe family serves")
+
+
+def check_trainable(cfg) -> None:
+    """Raise for a config the port cannot train yet (the moe family)."""
+    if cfg.family == "moe":
+        raise NotImplementedError(f"{cfg.name}: {MOE_TRAINING}")
 
 
 def _layer_views(layers, n: int):
@@ -99,16 +124,55 @@ def _maybe_remat(fn, remat: str):
 # ---------------------------------------------------------------------------
 
 
-def init_dense_layer(gen: torch.Generator, cfg, dtype=torch.float32):
-    return {"ln1": norm_params(cfg, dtype, gen.device),
-            "ln2": norm_params(cfg, dtype, gen.device),
-            "attn": gqa_params(gen, cfg, dtype),
-            "mlp": mlp_params(gen, cfg, dtype=dtype)}
+def init_dense_layer(gen: torch.Generator, cfg, dtype=torch.float32,
+                     moe: bool = False, d_ff: Optional[int] = None):
+    p = {"ln1": norm_params(cfg, dtype, gen.device),
+         "ln2": norm_params(cfg, dtype, gen.device),
+         "attn": attn_params(gen, cfg, dtype)}
+    if moe:
+        p["moe"] = moe_params(gen, cfg, dtype)
+    else:
+        p["mlp"] = mlp_params(gen, cfg, d_ff=d_ff, dtype=dtype)
+    return p
 
 
-def _stack(trees):
-    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+def _copy_into(dst, src, i: int) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v, i)
+        else:
+            dst[k][i].copy_(v)
+
+
+def _init_stacked(n: int, make_layer):
+    """``n`` layers from ``make_layer()`` stacked on a leading axis, built in
+    place: each stacked leaf is allocated once, from the first layer's
+    shapes, and layer i is drawn by the i-th call and copied into slot i, so
+    the draws come in the order a per-layer list would take them while at
+    most one layer lives beside the stack (a list then ``torch.stack`` would
+    hold every layer twice). One layer is viewed, not copied."""
+    first = make_layer()
+
+    def alloc(node):
+        if isinstance(node, dict):
+            return {k: alloc(v) for k, v in node.items()}
+        return (node[None] if n == 1 else
+                torch.empty((n,) + tuple(node.shape), dtype=node.dtype,
+                            device=node.device))
+
+    out = alloc(first)
+    if n > 1:
+        _copy_into(out, first, 0)
+        del first
+        for i in range(1, n):
+            _copy_into(out, make_layer(), i)
+    return out
+
+
+def _n_first_dense(cfg) -> int:
+    """Leading dense layers of the stack: ``first_k_dense`` for a moe
+    config, none otherwise."""
+    return cfg.first_k_dense if cfg.is_moe else 0
 
 
 def init_decoder(gen: torch.Generator, cfg, dtype=torch.float32):
@@ -120,9 +184,26 @@ def init_decoder(gen: torch.Generator, cfg, dtype=torch.float32):
               "ln_f": norm_params(cfg, dtype, gen.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
-    params["layers"] = _stack([init_dense_layer(gen, cfg, dtype)
-                               for _ in range(cfg.n_layers)])
+    kd = _n_first_dense(cfg)
+    if kd:
+        params["dense_layers"] = _init_stacked(kd, lambda: init_dense_layer(
+            gen, cfg, dtype, d_ff=cfg.dense_d_ff or cfg.d_ff))
+    params["layers"] = _init_stacked(cfg.n_layers - kd, lambda: init_dense_layer(
+        gen, cfg, dtype, moe=cfg.is_moe))
+    if cfg.is_moe and cfg.n_mtp_modules:
+        params["mtp"] = {
+            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype),
+            "block": init_dense_layer(gen, cfg, dtype, d_ff=cfg.dense_d_ff or cfg.d_ff),
+            "ln": norm_params(cfg, dtype, gen.device)}
     return params
+
+
+def _stack_views(params, cfg) -> list:
+    """Every layer's weights as views, in depth order: a moe stack's
+    ``dense_layers`` first, then ``layers``."""
+    kd = _n_first_dense(cfg)
+    views = _layer_views(params["dense_layers"], kd) if kd else []
+    return views + _layer_views(params["layers"], cfg.n_layers - kd)
 
 
 # ---------------------------------------------------------------------------
@@ -130,18 +211,30 @@ def init_decoder(gen: torch.Generator, cfg, dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 
-def dense_block(p, h, cfg, positions, impl, chunk, return_kv=False):
-    """Standard pre-norm block. Returns h, or (h, kv) when ``return_kv``."""
+def _ffn(p, x, cfg, moe_cf):
+    """The block's MLP, or its MoE layer: (out, the router's aux loss or None)."""
+    if "moe" in p:
+        return apply_moe(p["moe"], x, cfg, capacity_factor=moe_cf)
+    return apply_mlp(p["mlp"], x, cfg.activation), None
+
+
+def dense_block(p, h, cfg, positions, impl, chunk, return_kv=False, moe_cf=1.25):
+    """Standard pre-norm block: GQA attention (MLA under ``cfg.use_mla``),
+    then the MLP or the MoE layer. Returns (h, aux), or (h, aux, kv) when
+    ``return_kv``; aux is the MoE layer's router loss, None for an MLP."""
     x = apply_norm(p["ln1"], h, cfg.norm)
-    if return_kv:
-        a, kv = gqa_forward(p["attn"], x, cfg, positions=positions, impl=impl,
-                            chunk=chunk, return_kv=True)
+    kv = None
+    if cfg.use_mla:
+        out = mla_forward(p["attn"], x, cfg, positions=positions, impl=impl,
+                          chunk=chunk, return_cache=return_kv)
     else:
-        a = gqa_forward(p["attn"], x, cfg, positions=positions, impl=impl,
-                        chunk=chunk)
+        out = gqa_forward(p["attn"], x, cfg, positions=positions, impl=impl,
+                          chunk=chunk, return_kv=return_kv)
+    a, kv = out if return_kv else (out, None)
     h = h + a
-    h = h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg.norm), cfg.activation)
-    return (h, kv) if return_kv else h
+    m, aux = _ffn(p, apply_norm(p["ln2"], h, cfg.norm), cfg, moe_cf)
+    h = h + m
+    return (h, aux, kv) if return_kv else (h, aux)
 
 
 def _logits(params, cfg, h):
@@ -151,34 +244,45 @@ def _logits(params, cfg, h):
 
 
 def forward_decoder(params, cfg, tokens, *, impl="chunked", chunk=1024,
-                    remat="none", return_cache=False):
+                    remat="none", return_cache=False, moe_cf=1.25,
+                    with_aux=False):
     """Returns (logits, h), or (last-position logits, (h, cache)) when
-    ``return_cache``; the cache is {"k", "v"} of shape (L, B, S, K, hd)."""
+    ``return_cache``; the cache is {"k", "v"} of shape (L, B, S, K, hd)
+    ({"latent", "k_rope"} (L, B, S, r|rd) under MLA). ``with_aux`` puts the
+    summed MoE router loss second, as the reference returns it: (logits,
+    aux, h) or (logits, aux, (h, cache))."""
     _check_family(cfg)
     block = _maybe_remat(dense_block, remat)
     B, S = tokens.shape
     h = embed_tokens(params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     positions = positions[None].expand(B, S)
-    ks, vs = [], []
-    for lp in _layer_views(params["layers"], cfg.n_layers):
+    aux = torch.zeros((), device=tokens.device)
+    kvs = []
+    for lp in _stack_views(params, cfg):
         if return_cache:
-            h, kv = block(lp, h, cfg, positions, impl, chunk, return_kv=True)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+            h, a, kv = block(lp, h, cfg, positions, impl, chunk, return_kv=True,
+                             moe_cf=moe_cf)
+            kvs.append(kv)
         else:
-            h = block(lp, h, cfg, positions, impl, chunk)
+            h, a = block(lp, h, cfg, positions, impl, chunk, moe_cf=moe_cf)
+        if a is not None:
+            aux = aux + a
     if return_cache:
         # prefill semantics: only the last position's logits are needed
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-        return _logits(params, cfg, h[:, -1:]), (h, cache)
-    return _logits(params, cfg, h), h
+        cache = {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
+        out = (_logits(params, cfg, h[:, -1:]), (h, cache))
+    else:
+        out = (_logits(params, cfg, h), h)
+    return (out[0], aux, out[1]) if with_aux else out
 
 
 def loss_decoder(params, cfg, batch, *, impl="chunked", chunk=1024,
                  remat="none"):
     """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S). The dense
-    family has no aux loss and no MTP head."""
+    family has no aux loss and no MTP head; the moe family raises
+    (``check_trainable``)."""
+    check_trainable(cfg)
     tokens = batch["tokens"]
     logits, _ = forward_decoder(params, cfg, tokens, impl=impl, chunk=chunk,
                                 remat=remat)
@@ -197,14 +301,15 @@ def _last_logits(params, cfg, h, last_pos=None):
 
 
 def prefill_decoder(params, cfg, tokens, *, impl="chunked", chunk=1024,
-                    last_pos=None):
-    """Single-pass prefill: returns (logits (B,1,V), cache (L,B,S,K,hd)).
+                    last_pos=None, moe_cf=1.25):
+    """Single-pass prefill: returns (logits (B,1,V), cache (L,B,S,...)).
 
     ``last_pos`` supports bucketed admission: prompts padded up to a bucket
     length still report the logits of their true last token.
     """
     logits, (h, cache) = forward_decoder(params, cfg, tokens, impl=impl,
-                                         chunk=chunk, return_cache=True)
+                                         chunk=chunk, return_cache=True,
+                                         moe_cf=moe_cf)
     if last_pos is not None:
         logits = _last_logits(params, cfg, h, last_pos)
     return logits, cache
@@ -218,31 +323,33 @@ def prefill_decoder(params, cfg, tokens, *, impl="chunked", chunk=1024,
 def init_cache_decoder(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                        device="cpu"):
     _check_family(cfg)
-    layer = init_gqa_cache(cfg, batch, max_len, dtype, device)
+    layer = (init_mla_cache if cfg.use_mla else init_gqa_cache)(
+        cfg, batch, max_len, dtype, device)
     return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
             for k, v in layer.items()}
 
 
 def init_paged_cache_decoder(cfg, num_blocks: int, block_size: int,
                              dtype=torch.bfloat16, device="cpu"):
-    """Paged KV layout: per-layer (num_blocks, block_size, K, hd) pools with
-    a leading layer axis. One block-table row addresses the same physical
+    """Paged KV layout: per-layer (num_blocks, block_size, ...) pools with a
+    leading layer axis. One block-table row addresses the same physical
     block index in every layer's pool, so the table is shared across the
     stack."""
     _check_family(cfg)
-    layer = init_gqa_pool(cfg, num_blocks, block_size, dtype, device)
+    layer = (init_mla_pool if cfg.use_mla else init_gqa_pool)(
+        cfg, num_blocks, block_size, dtype, device)
     return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
             for k, v in layer.items()}
 
 
 def _layer_cache(cache, i: int) -> dict:
     """Layer ``i``'s cache entries as views, so the layer writes in place."""
-    return {"k": cache["k"][i], "v": cache["v"][i]}
+    return {k: v[i] for k, v in cache.items()}
 
 
 def paged_prefill_step_decoder(params, cfg, cache, tokens, start: int,
                                block_table, *, last_pos=None,
-                               write: bool = True):
+                               write: bool = True, moe_cf=1.25):
     """One block-sized chunk of paged prefill.
 
     tokens: (B, block_size) int — one chunk of the (right-padded) prompt;
@@ -254,29 +361,32 @@ def paged_prefill_step_decoder(params, cfg, cache, tokens, start: int,
     (prefix-hit) blocks without touching the pools.
 
     Returns (logits, cache): logits of position ``last_pos`` within the
-    chunk (``None`` = final position), as :func:`_last_logits`.
+    chunk (``None`` = final position), as :func:`_last_logits`. A moe
+    chunk routes its own tokens, so its capacity drops are the chunk's, as
+    in the reference.
     """
     _check_family(cfg)
+    prefill = mla_prefill_paged if cfg.use_mla else gqa_prefill_paged
     h = embed_tokens(params["embed"], tokens)
-    for i, lp in enumerate(_layer_views(params["layers"], cfg.n_layers)):
+    for i, lp in enumerate(_stack_views(params, cfg)):
         x = apply_norm(lp["ln1"], h, cfg.norm)
-        a, _ = gqa_prefill_paged(lp["attn"], x, _layer_cache(cache, i), start,
-                                 block_table, cfg, write=write)
+        a, _ = prefill(lp["attn"], x, _layer_cache(cache, i), start, block_table,
+                       cfg, write=write)
         h = h + a
-        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm),
-                          cfg.activation)
+        h = h + _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm), cfg, moe_cf)[0]
     return _last_logits(params, cfg, h, last_pos), cache
 
 
 def decode_step_decoder(params, cfg, cache, tokens, cache_len, *, impl="chunked",
-                        block_table=None):
+                        block_table=None, moe_cf=1.25):
     """One-token decode. tokens: (B,1) int; cache_len: scalar or (B,) int.
 
     ``impl="pallas"`` selects the flash-decode kernel for every KV-cache
-    attention in the stack; any other impl uses the naive decode oracle (the
-    prefill impls chunked/pallas apply to full-sequence attention, so decode
-    maps them onto {naive, pallas}). The cache is updated in place (the JAX
-    package donates it instead) and returned.
+    attention in the stack (the latent-space kernel under MLA); any other
+    impl uses the naive decode oracle (the prefill impls chunked/pallas
+    apply to full-sequence attention, so decode maps them onto {naive,
+    pallas}). The cache is updated in place (the JAX package donates it
+    instead) and returned.
 
     ``block_table`` (B, T) int switches to the paged layout: ``cache`` leaves
     are (L, num_blocks, block_size, ...) pools and every layer resolves the
@@ -285,22 +395,26 @@ def decode_step_decoder(params, cfg, cache, tokens, cache_len, *, impl="chunked"
     _check_family(cfg)
     dimpl = "pallas" if impl == "pallas" else "naive"
     h = embed_tokens(params["embed"], tokens)
-    for i, lp in enumerate(_layer_views(params["layers"], cfg.n_layers)):
+    for i, lp in enumerate(_stack_views(params, cfg)):
         lcache = _layer_cache(cache, i)
         x = apply_norm(lp["ln1"], h, cfg.norm)
-        if block_table is not None:
+        if cfg.use_mla and block_table is not None:
+            a, _ = mla_decode_paged(lp["attn"], x, lcache, cache_len, block_table,
+                                    cfg, impl=dimpl)
+        elif cfg.use_mla:
+            a, _ = mla_decode(lp["attn"], x, lcache, cache_len, cfg, impl=dimpl)
+        elif block_table is not None:
             a, _ = gqa_decode_paged(lp["attn"], x, lcache, cache_len,
                                     block_table, cfg, impl=dimpl)
         else:
             a, _ = gqa_decode(lp["attn"], x, lcache, cache_len, cfg, impl=dimpl)
         h = h + a
-        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm),
-                          cfg.activation)
+        h = h + _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm), cfg, moe_cf)[0]
     return _logits(params, cfg, h), cache
 
 
 def spec_decode_step_decoder(params, cfg, cache, tokens, cache_len, *,
-                             impl="chunked", block_table=None):
+                             impl="chunked", block_table=None, moe_cf=1.25):
     """Speculative verify step.
 
     tokens: (B, S) int — the last accepted token followed by S-1 draft
@@ -311,12 +425,16 @@ def spec_decode_step_decoder(params, cfg, cache, tokens, cache_len, *,
     the bonus distribution past the last draft. The KV cache comes back
     with all S positions written (in place); the caller's accept/rollback is
     pure cache_len bookkeeping. ``block_table`` selects the paged layout as
-    in :func:`decode_step_decoder`.
+    in :func:`decode_step_decoder`. MLA has no verify window, as in the
+    reference.
     """
     _check_family(cfg)
+    if cfg.use_mla:
+        raise ValueError("speculative decode is not implemented for MLA "
+                         "attention (absorbed-q verify window pending)")
     dimpl = "pallas" if impl == "pallas" else "naive"
     h = embed_tokens(params["embed"], tokens)
-    for i, lp in enumerate(_layer_views(params["layers"], cfg.n_layers)):
+    for i, lp in enumerate(_stack_views(params, cfg)):
         lcache = _layer_cache(cache, i)
         x = apply_norm(lp["ln1"], h, cfg.norm)
         if block_table is not None:
@@ -326,6 +444,5 @@ def spec_decode_step_decoder(params, cfg, cache, tokens, cache_len, *,
             a, _ = gqa_decode_spec(lp["attn"], x, lcache, cache_len, cfg,
                                    impl=dimpl)
         h = h + a
-        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm),
-                          cfg.activation)
+        h = h + _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm), cfg, moe_cf)[0]
     return _logits(params, cfg, h), cache

@@ -1805,3 +1805,139 @@ def test_run_real_on_the_card(freed, monkeypatch):
     np.testing.assert_allclose(cap.losses, eager.losses, rtol=1e-3)
     assert errs and max(errs) <= 1e-6, max(errs)
     assert all(p.is_cuda for p in tree_leaves_(cap.params))
+
+
+# ---------------------------------------------------------------------------
+# the deepseek family: the MLA latent decode kernel (csrc/flash_decode_mla.cu)
+# and the moe engines
+# ---------------------------------------------------------------------------
+
+# deepseek-v3's latent geometry: H = G = 128 query rows over one latent
+# head, keys [latent | k_rope] of 512 + 64, values the 512-wide latent, scale
+# 1/sqrt(128 + 64); and an odd one (H not a multiple of the 32-row groups)
+MLA_GEOMETRIES = {"deepseek-v3": (128, 512, 64), "odd": (40, 64, 16)}
+
+
+def _mla_inputs(g, dev, dtype, B, H, r, rd, n, paged):
+    """Queries (f32), caches of ``n`` positions a row (or pools of B * T + 1
+    blocks of 16 and a shuffled table, the first row an idle slot's at null
+    block 0), in ``dtype``."""
+    q_lat = torch.randn(B, H, r, generator=g, device=dev)
+    q_rope = torch.randn(B, H, rd, generator=g, device=dev)
+    if not paged:
+        return q_lat, q_rope, (torch.randn(B, n, r, generator=g, device=dev) * 0.3).to(dtype), \
+            torch.randn(B, n, rd, generator=g, device=dev).to(dtype)
+    bs, T = 16, -(-n // 16)
+    NB = B * T + 1
+    lat = (torch.randn(NB, bs, r, generator=g, device=dev) * 0.3).to(dtype)
+    kr = torch.randn(NB, bs, rd, generator=g, device=dev).to(dtype)
+    table = (torch.randperm(B * T, generator=g, device=dev) + 1).reshape(B, T)
+    table[0] = 0
+    table[2, T - 1] = NB + 5  # past the pool: clamped
+    return q_lat, q_rope, lat, kr, table.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype,lowp", [(torch.float32, False), (torch.bfloat16, False),
+                                        (torch.bfloat16, True)])
+@pytest.mark.parametrize("geometry", sorted(MLA_GEOMETRIES))
+def test_mla_decode_kernel_matches_plain(geometry, dtype, lowp, paged):
+    """flash_decode_mla(_paged) against its plain version: f32 q over a bf16
+    and an f32 cache of 1000 positions a row (a multiple of neither key tile,
+    32 and 16 positions, nor of the 64-position table entries), lengths 0,
+    1, past the capacity (a retired slot), and ragged; one launch a call,
+    two calls the same bits, the arrival counts zero after."""
+    dev = _device()
+    H, r, rd = MLA_GEOMETRIES[geometry]
+    B, n = 6, 1000
+    g = torch.Generator(device=dev).manual_seed(H + r)
+    args = _mla_inputs(g, dev, dtype, B, H, r, rd, n, paged)
+    cap = n if not paged else 16 * args[-1].shape[1]
+    lens = torch.tensor([0, 1, cap + 1, 37, 517, n - 1], dtype=torch.int32, device=dev)
+    scale = 1.0 / (192 ** 0.5)
+    name = "flash_decode_mla_paged" if paged else "flash_decode_mla"
+    kernel, plain = getattr(fa, name), getattr(ref, "ref_" + name)
+    tab = (args[-1].clamp(0, args[2].shape[0] - 1),) if paged else ()
+    before = fa.launches[name]
+    out = kernel(*args, lens, scale=scale, lowp=lowp)
+    assert fa.launches[name] == before + 1
+    assert out.shape == (B, H, r) and out.dtype == torch.float32
+    want = plain(*args[:4], *tab, lens, scale=scale, lowp=lowp)
+    torch.testing.assert_close(out, want, **(BF16 if lowp else F32))
+    assert not out[0].any(), "a length-0 row must return zeros"
+    assert torch.equal(out, kernel(*args, lens, scale=scale, lowp=lowp))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = fa._ARRIVALS.get((dev.index or torch.cuda.current_device(), stream))
+    assert buf is None or not buf.any()
+
+
+@pytest.mark.cuda
+def test_mla_decode_wrappers_refuse_what_the_kernel_does_not_take():
+    dev = _device()
+    q_lat, q_rope = torch.zeros(1, 4, 520, device=dev), torch.zeros(1, 4, 64, device=dev)
+    with pytest.raises(RuntimeError, match="8 <= r <= 512"):
+        fa.flash_decode_mla(q_lat, q_rope, torch.zeros(1, 8, 520, device=dev),
+                            torch.zeros(1, 8, 64, device=dev), 3, scale=0.1)
+    with pytest.raises(RuntimeError, match="flash_decode_mla failed.*multiples of 8"):
+        fa.flash_decode_mla(q_lat[..., :20], q_rope, torch.zeros(1, 8, 20, device=dev),
+                            torch.zeros(1, 8, 64, device=dev), 3, scale=0.1)
+
+
+def _deepseek(name):
+    """deepseek-v3-671b cut to 4 layers (3 dense MLA layers, 1 MLA + MoE
+    layer) with 16 of its 256 routed experts, at full width otherwise; or
+    deepseek-moe-16b cut to 4 layers (1 dense, 3 MoE) at full width: f32
+    states of 18 and 9 GB."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if name == "deepseek-v3-671b":
+        return dataclasses.replace(cfg, n_layers=4, n_experts=16)
+    return dataclasses.replace(cfg, n_layers=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,depth", [("contig", 0), ("paged", 0), ("contig", 3)])
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "deepseek-moe-16b"])
+def test_deepseek_engine_streams_kernel_against_plain(freed, name, layout, depth):
+    """Greedy streams of ``attn_impl="pallas"`` (the MLA latent decode, or
+    the GQA decode and verify kernels at G 1 hd 128; captured steps) equal
+    the plain path's (``naive``), f32 weights and cache: 4 slots, 6 requests
+    of 20-44 tokens, 8 new tokens (slots retire and ride along idle). MLA
+    has no verify step, so its draft depth decodes one token a step."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    dev = _device()
+    cfg = _deepseek(name)
+    rng = np.random.default_rng(2)
+    reqs = [serve.Request(uid=u, prompt=rng.integers(0, cfg.vocab_size, 20 + 5 * u
+                                                      ).astype(np.int32),
+                          max_new_tokens=8 - u % 3) for u in range(6)]
+    kw = dict(max_batch=4, max_seq=64, kv_layout=layout, block_size=16, draft_depth=depth)
+    model = build_model(cfg, impl="pallas", device=dev)
+    params = model.init(model.generator(0))
+    streams, counts = {}, {}
+    for impl in ("naive", "pallas"):
+        m = model if impl == "pallas" else build_model(cfg, impl="naive", device=dev)
+        fa.reset_launches()
+        engine = serve.ContinuousBatchingEngine(m, params, **kw)
+        done = engine.run([serve.Request(uid=r.uid, prompt=r.prompt,
+                                         max_new_tokens=r.max_new_tokens) for r in reqs])
+        streams[impl] = {u: f.tokens for u, f in done.items()}
+        counts[impl] = fa.all_launches()
+        if impl == "pallas":
+            step = engine._spec_decode if depth and not cfg.use_mla else engine._decode
+            assert step.replays > 0
+        del engine
+    assert streams["pallas"] == streams["naive"]
+    assert not any(counts["naive"].values())
+    mla = cfg.use_mla
+    kname = ("flash_decode_mla" if mla else
+             "flash_decode_spec" if depth else "flash_decode") + \
+        ("_paged" if layout == "paged" and not (depth and not mla) else "")
+    assert counts["pallas"][kname] > 0, counts["pallas"]
+    assert counts["pallas"]["flash_fwd"] == (0 if mla or layout == "paged" else
+                                             len(reqs) * cfg.n_layers)

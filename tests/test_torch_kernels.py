@@ -144,7 +144,8 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
     assert torch.equal(o, ro) and torch.equal(lse, rl)
     assert tfa.launches == {"flash_fwd": 0, "flash_decode": 0,
                             "flash_decode_paged": 0, "flash_decode_spec": 0,
-                            "flash_decode_spec_paged": 0}
+                            "flash_decode_spec_paged": 0, "flash_decode_mla": 0,
+                            "flash_decode_mla_paged": 0}
 
 
 def _fake_cuda(monkeypatch, capability):

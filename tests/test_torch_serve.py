@@ -121,7 +121,9 @@ def test_engine_contract(params):
     assert set(st["kernel_launches"]) == {"flash_fwd", "flash_decode",
                                           "flash_decode_paged",
                                           "flash_decode_spec",
-                                          "flash_decode_spec_paged"}
+                                          "flash_decode_spec_paged",
+                                          "flash_decode_mla",
+                                          "flash_decode_mla_paged"}
 
 
 def test_cli_runs_on_the_cpu(tmp_path):
@@ -134,4 +136,5 @@ def test_cli_runs_on_the_cpu(tmp_path):
     assert payload["device"] == "cpu" and payload["impl"] == "pallas"
     assert payload["stats"]["kernel_launches"] == {
         "flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0,
-        "flash_decode_spec": 0, "flash_decode_spec_paged": 0}
+        "flash_decode_spec": 0, "flash_decode_spec_paged": 0,
+        "flash_decode_mla": 0, "flash_decode_mla_paged": 0}
