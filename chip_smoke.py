@@ -292,6 +292,33 @@ Phases (any failure raises and the script exits non-zero):
    the deep layers, and a first decision outside one unit says nothing of
    the kernel there. Prints each path's tok/s, peak memory, launches, and
    (bf16) a profiled decode step's host and device ms.
+23. Training of the moe family. The flash forward and backward at
+   deepseek-moe-16b's train geometry (``MOE_GEOMETRY``: B4 H16 S512 hd128,
+   causal) in f32 and bf16 against their plain versions, timed beside SDPA
+   and their bounds; the MoE layer's forward and backward at its
+   full-width shape (T 2048, E 64, top-6, d 2048, ff 1408) twice on the
+   same inputs: every gradient the same bits. (a) deepseek-moe-16b at full
+   width cut to 5 layers (``MOE_TRAIN``: the dense layer and 4 MoE layers,
+   2.85B params, f32; the whole model's state does not fit a card), adam lr
+   3e-4, phase 6's batch 4 x 512 and 6 steps through ``TrainSession`` on a
+   static rung, pallas eager, pallas captured, then naive captured, held to
+   phase 6's rules: flash_fwd, flash_bwd_dq and flash_bwd_dkv 5 x 6 each on
+   the pallas runs, none on the plain one; captured and eager losses within
+   LOSS_RTOL, a replayed step's gradients within GRAD_RTOL of an eager
+   step's; pallas and naive losses within LOSS_RTOL and first-step
+   gradients within GRAD_RTOL. The routing and capacity decisions the two
+   paths took differently in the first step's forward are printed with
+   their margins, the causally first (the earliest moe layer) first.
+   Prints the median step ms, tokens/s, capture ms, peak memory, a profiled
+   captured step's kernels, and an eager step's device time split into the
+   expert ``bmm``s, the flash kernels and the rest. (b) the default
+   ladder's ``lean`` rung (bf16 parameters, adam's f32 moments, microbatch
+   4), captured: flash launches 5 x 4 x 6 each, losses finite, their
+   distance from (a)'s and the routing drift of bf16 parameters reported.
+   (c) deepseek-v3 cut to its dense MLA layer and the MTP head (3.12B
+   params, f32; one of its MoE layers alone is 11.3B), eager and captured,
+   losses within LOSS_RTOL; the batch is 4 x 512 unless the reckoned peak
+   (``activation_gb``) passes 75 GB, then 2 x 512.
 
 Every path's launch counts are set to 0 just before its run and read just
 after. Phase 3 holds the contiguous decode at the serve run's shape (B8 K8
@@ -319,10 +346,11 @@ Output: progress lines, then JSON lines ``{"serve": ...}``, ``{"train":
 ...}``, ``{"serve_paged": ...}``, ``{"serve_spec": ...}``, ``{"cnn": ...}``,
 ``{"rmsnorm": ...}``, ``{"planner": ...}``, ``{"cotenancy": ...}``,
 ``{"fl": ...}``, ``{"serve_sampled": ...}``, ``{"dense": ...}``,
-``{"obs": ...}``, ``{"deepseek": ...}`` and ``{"kernels": [...]}`` (all ten
-kernels, with phase 19's to 22's launches on those they run and phase 20's
-and 22's checks at nemotron-4-15b's and deepseek-moe-16b's geometries
-appended to their checks, then the five mixed-dtype decode entries with
+``{"obs": ...}``, ``{"deepseek": ...}``, ``{"moe_train": ...}`` and
+``{"kernels": [...]}`` (all ten kernels, with phase 19's to 23's launches
+on those they run and phase 20's, 22's and 23's checks at nemotron-4-15b's
+and deepseek-moe-16b's serve and train geometries appended to their
+checks, then the five mixed-dtype decode entries with
 their phase-17 and 21(d) launches, then the MLA latent decode's two
 layouts with phase 22(a)'s checks and 22(b)'s launches), the
 card's name and power limit as ``nvidia-smi`` gives them, and as the last
@@ -567,24 +595,27 @@ def check_flash_decode(fa, ref):
     return checks
 
 
-def check_flash_bwd(fb, ref):
+BWD_CHECKS = [(4, 32, 512, 512, 64, True, torch.float32, False),  # B, H, Sq, Sk, hd,
+              (2, 32, 512, 512, 64, True, torch.float32, False),  # causal, dtype, lowp
+              (4, 32, 512, 512, 64, True, torch.bfloat16, True),
+              (4, 32, 512, 512, 64, True, torch.bfloat16, False),
+              (2, 32, 300, 373, 64, False, torch.float32, False)]
+
+
+def check_flash_bwd(fb, ref, cases=None):
     """The two backward kernels at the train step's shape, B=4, H=32, S=512,
     hd=64, causal, in their three modes: f32 (FFMA), bf16 with lowp and
     bf16 without it (tensor cores, p and ds split into bf16 pairs, held to
     SPLIT_TOL); in f32 at the ``accum`` rung's microbatch, B=2; then a
-    ragged case, Sq=300 against Sk=373, full attention.
+    ragged case, Sq=300 against Sk=373, full attention. ``cases`` replaces
+    ``BWD_CHECKS`` (phase 23: deepseek-moe-16b's train geometry).
     Both kernels get the same o, lse and delta as their plain versions. The
     library yardstick is one ``torch.autograd.grad`` through SDPA (dq, dk
     and dv together; its forward runs before the timing)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(3)
     dq_checks, dkv_checks = [], []
-    for B, Sq, Sk, causal, dtype, lowp in [(4, 512, 512, True, torch.float32, False),
-                                           (2, 512, 512, True, torch.float32, False),
-                                           (4, 512, 512, True, torch.bfloat16, True),
-                                           (4, 512, 512, True, torch.bfloat16, False),
-                                           (2, 300, 373, False, torch.float32, False)]:
-        H, hd = 32, 64
+    for B, H, Sq, Sk, hd, causal, dtype, lowp in cases or BWD_CHECKS:
         q, do = (torch.randn(B, H, Sq, hd, generator=g, device="cuda").to(dtype)
                  for _ in range(2))
         k, v = (torch.randn(B, H, Sk, hd, generator=g, device="cuda").to(dtype)
@@ -1590,7 +1621,9 @@ def profile_train_step(step_fn, state, batch):
     """Where one train step's time goes: ``torch.profiler`` over one step
     (after the run warmed everything up; a compiled step first runs until
     its next call replays). Returns (host ms, device busy ms,
-    [(ms, calls, kernel name)] of the kernels with the most device time)."""
+    [(ms, calls, kernel name)] of the kernels with the most device time,
+    {CPU op: the device ms of the kernels it launched}; an eager step's
+    ops: a replay runs none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     compiles = getattr(step_fn, "compiles", None)
@@ -1602,11 +1635,14 @@ def profile_train_step(step_fn, state, batch):
         state, metrics = step_fn(state, batch)
         float(metrics["loss"])
         host_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = [(e.self_device_time_total / 1e3, e.count, e.key)
            for e in sorted(events, key=lambda e: -e.self_device_time_total)]
-    return host_ms, dev_ms, top
+    ops = {e.key: e.device_time_total / 1e3 for e in averages
+           if e.device_type == DeviceType.CPU}
+    return host_ms, dev_ms, top, ops
 
 
 def train_phases(fa, build_model, cfg, device="cuda"):
@@ -1677,7 +1713,7 @@ def train_phases(fa, build_model, cfg, device="cuda"):
             for mode, fn in (("captured", step_fn),
                              ("eager", rung.train_step_fn(rung.build_model(cfg, device),
                                                           adam(), lr=TRAIN["lr"]))):
-                host_ms, dev_ms, top = profile_train_step(fn, res.state, batch_fn(steps))
+                host_ms, dev_ms, top, _ = profile_train_step(fn, res.state, batch_fn(steps))
                 attn_ms = sum(t for t, _, k in top if "flash_" in k)
                 print(f"[profile] train step (pallas, {mode}): host {host_ms:.1f} ms, "
                       f"device busy {dev_ms:.1f} ms ({100 * dev_ms / host_ms:.1f}% of "
@@ -1830,7 +1866,7 @@ def adaptive_phase(fa, cfg, batch_fn, device="cuda"):
     for mode, fn in (("captured", steps_fn[last.name]),
                      ("eager", last.train_step_fn(last.build_model(cfg, device), adam(),
                                                   lr=TRAIN["lr"]))):
-        host_ms, dev_ms, top = profile_train_step(fn, res.state, batch_fn(adaptive_steps))
+        host_ms, dev_ms, top, _ = profile_train_step(fn, res.state, batch_fn(adaptive_steps))
         bwd_ms = sum(t for t, _, k in top if "flash_bwd" in k)
         fwd_ms = sum(t for t, _, k in top if "flash_fwd" in k)
         print(f"[profile] one step on {last.name} ({mode}): host {host_ms:.1f} ms, "
@@ -2038,7 +2074,7 @@ def cnn_phases(dw, build_model, get_config, device="cuda"):
             check(res.losses[-1] < res.losses[0],
                   f"{arch}: the last loss is not below the first: {res.losses}")
             step_fn = rung.jitted_step(cfg, adam(), lr=CNN["lr"], device=device, jit=jit)
-            host_ms, dev_ms, top = profile_train_step(step_fn, res.state, first)
+            host_ms, dev_ms, top, _ = profile_train_step(step_fn, res.state, first)
             top = top[:8]
             mode = "captured" if jit else "eager"
             print(f"[cnn-train] {arch} {mode}: losses {[round(x, 4) for x in res.losses]}; "
@@ -3968,6 +4004,25 @@ def _margin_units(values, dtype, k):
     return (top[..., k - 1] - top[..., k]).reshape(-1).tolist(), unit.reshape(-1).tolist()
 
 
+def capacity_cut(gates, top_i, capacity):
+    """Which of each token's routed experts (``top_i`` sorted) kept it
+    within their capacity, (T, k) bool, and the token's distance in gate
+    value from the nearest of those experts' capacity cuts (T,); (None,
+    None) where the capacity cuts no token."""
+    T = gates.shape[0]
+    cap = min(capacity, T)
+    if cap >= T:
+        return None, None
+    vals, idx = torch.topk(gates.T, cap + 1, dim=-1)  # (E, cap + 1)
+    kept = torch.zeros_like(gates.T, dtype=torch.bool)
+    kept.scatter_(1, idx[:, :cap], True)
+    kept = kept.T  # (T, E)
+    last, nxt = vals[:, cap - 1][None], vals[:, cap][None]
+    dist = torch.where(kept, torch.where(nxt > 0, gates - nxt, torch.inf), last - gates)
+    srt = top_i.sort(-1).values
+    return torch.gather(kept, 1, srt), torch.gather(dist, 1, srt).min(-1).values
+
+
 def recorded_moe_run(serve, moe_mod, model, params, reqs, **engine_kw):
     """The engine run eagerly (``jit=False``) with its steps and its moe
     layers wrapped, recording every discrete decision a stream's tokens
@@ -4000,24 +4055,14 @@ def recorded_moe_run(serve, moe_mod, model, params, reqs, **engine_kw):
         rows = ctx["rows"]
         if rows is not None:
             chosen, gaps, units = ctx["route"]
-            T = x_flat.shape[0]
-            cap = min(capacity, T)
-            if cap < T:  # capacity cuts: which tokens an expert keeps is a decision too
+            kept, gap = capacity_cut(gates, top_i, capacity)
+            if kept is not None:  # which tokens an expert keeps is a decision too
                 rec["calls"][ctx["seq"]][1] = True
-                vals, idx = torch.topk(gates.T, cap + 1, dim=-1)  # (E, cap + 1)
-                kept = torch.zeros_like(gates.T, dtype=torch.bool)
-                kept.scatter_(1, idx[:, :cap], True)
-                kept = kept.T  # (T, E)
-                last, nxt = vals[:, cap - 1][None], vals[:, cap][None]
-                dist = torch.where(kept, torch.where(nxt > 0, gates - nxt, torch.inf),
-                                   last - gates)
-                srt = top_i.sort(-1).values
-                kept_rows = torch.gather(kept, 1, srt).tolist()
-                kgaps = torch.gather(dist, 1, srt).min(-1).values.tolist()
+                kgaps = gap.tolist()
                 kept_of = [tuple(e for e, k in zip(c, kr) if k)
-                           for c, kr in zip(chosen, kept_rows)]
+                           for c, kr in zip(chosen, kept.tolist())]
             else:
-                kept_of, kgaps = [tuple(c) for c in chosen], [float("inf")] * T
+                kept_of, kgaps = [tuple(c) for c in chosen], [float("inf")] * len(chosen)
             layer = ctx["layer"] - 1
             for i, key in enumerate(rows):
                 if key is not None:
@@ -4389,6 +4434,383 @@ def deepseek_phase(fa, ref, serve, build_model, backend, get_config, gather):
         checks.setdefault(name, []).extend(cs)
     return out, checks, launches
 
+# ---------------------------------------------------------------------------
+# phase 23: training of the moe family
+# ---------------------------------------------------------------------------
+
+# deepseek-moe-16b at full width cut to its dense layer and 4 MoE layers
+# (2.85B parameters, ~57 GB of f32 state with adam), phase 6's batch and
+# steps; deepseek-v3 cut to its first dense MLA layer and the MTP head
+MOE_TRAIN = dict(arch="deepseek-moe-16b", layers=5, v3_layers=1, v3_steps=4,
+                 peak_limit_gb=75.0)
+# deepseek-moe-16b's train step: B4, H16 (K16, G1), S512, hd 128, causal
+MOE_GEOMETRY = dict(B=TRAIN["batch"], H=16, S=TRAIN["seq"], hd=128)
+STATE_BYTES = 20  # a parameter, its gradient, adam's m and v and update, f32
+
+
+def fake_param_count(cfg) -> int:
+    """The parameters ``init_decoder`` makes for ``cfg`` (the MTP head
+    included, which ``param_count`` leaves out), counted under
+    ``FakeTensorMode``: nothing is drawn or allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import transformer
+    with FakeTensorMode():
+        params = transformer.init_decoder(torch.Generator(device="cuda"), cfg)
+    return sum(p.numel() for p in _leaves(params))
+
+
+def activation_gb(cfg, tokens: int) -> float:
+    """A reckoning of one step's activations: per token, the logits of the
+    head (and of the MTP head) in three f32 copies (logits, softmax, its
+    gradient), the attention's scores over the sequence in three (the
+    chunked path's scores, probabilities and their gradient; more than the
+    flash kernels keep), and for each layer 8 vectors of its MLP's width
+    (for a MoE layer, the routed experts' top-k times the capacity factor
+    1.25, plus the shared experts) and 16 of d_model."""
+    heads = 2 if cfg.n_mtp_modules else 1
+    moe_width = (cfg.top_k * 1.25 + cfg.n_shared_experts) * cfg.moe_d_ff
+    widths = [cfg.dense_d_ff] * (cfg.first_k_dense + heads - 1) \
+        + [moe_width] * (cfg.n_layers - cfg.first_k_dense)
+    per_token = 3 * heads * cfg.vocab_size + 3 * cfg.n_heads * TRAIN["seq"] \
+        + sum(8 * w + 16 * cfg.d_model for w in widths)
+    return 4 * per_token * tokens / 1e9
+
+
+class RoutingRecorder:
+    """The router's and the capacity's decisions of every MoE call while
+    active (``moe._top`` and ``moe._moe_local`` wrapped): for each call, the
+    experts each token chose (sorted), those that kept it within their
+    capacity, the k-th router logit less the (k+1)-th, one unit of the
+    logits' dtype there, and the token's distance in gate value from the
+    capacity cut of its experts (as ``recorded_moe_run`` records them)."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.calls = moe_mod, []
+
+    def __enter__(self):
+        real_top, real_local = self.moe._top, self.moe._moe_local
+        self._real = real_top, real_local
+
+        def top(x_flat, router_w, cfg):
+            out = real_top(x_flat, router_w, cfg)
+            with torch.no_grad():
+                logits = x_flat @ router_w
+                gaps, units = _margin_units(logits, logits.dtype, cfg.top_k)
+            self.calls.append({"chosen": out[2].sort(-1).values.cpu(),
+                               "gap": gaps, "unit": units})
+            return out
+
+        def local(x_flat, gates, top_i, experts, capacity, activation):
+            with torch.no_grad():
+                kept, gap = capacity_cut(gates, top_i, capacity)
+                if kept is None:
+                    kept = torch.ones_like(top_i, dtype=torch.bool)
+                    gap = torch.full(top_i.shape[:1], torch.inf)
+                self.calls[-1].update(kept=kept.cpu(), cut_gap=gap.tolist())
+            return real_local(x_flat, gates, top_i, experts, capacity, activation)
+
+        self.moe._top, self.moe._moe_local = top, local
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top, self.moe._moe_local = self._real
+
+
+def routing_differences(got, want):
+    """The decisions two runs of the same calls took differently, ordered
+    causally as ``moe_streams`` orders them (by call: in one forward, its
+    moe layer; a layer's decisions feed every later layer): [(call, token,
+    kind, the second run's margin, its unit)], kind "route" (the router's
+    top-k, margin in router-logit units) or "capacity" (the capacity cut,
+    margin in gate value, which has no unit but LOGIT_TOL)."""
+    out = []
+    for c, (a, b) in enumerate(zip(got, want)):
+        route = (a["chosen"] != b["chosen"]).any(-1)
+        cut = (a["kept"] != b["kept"]).any(-1) & ~route
+        for t in route.nonzero().flatten().tolist():
+            out.append((c, t, "route", b["gap"][t], b["unit"][t]))
+        for t in cut.nonzero().flatten().tolist():
+            out.append((c, t, "capacity", b["cut_gap"][t], 0.0))
+    return out
+
+
+def report_routing(label, got, want, held=False) -> dict:
+    """Print the decisions two runs took differently, the causally first
+    ones (the earliest call) with their margins; return them."""
+    check(len(got) == len(want), f"{label}: {len(got)} and {len(want)} moe calls")
+    diffs = routing_differences(got, want)
+    first = [d for d in diffs if d[0] == diffs[0][0]] if diffs else []
+    within = all(_within((None, d[2], None, d[3], d[4])) for d in first)
+    print(f"[moe-train] {label}: {len(diffs)} of "
+          f"{sum(len(c['gap']) for c in want)} token-call decisions differ"
+          + (f"; the first in moe call {first[0][0]}: " + "; ".join(
+              f"{k} of token {t}, margin {m:.3g} (unit {u:.3g})"
+              for _, t, k, m, u in sorted(first, key=lambda d: -d[3])[:4])
+             + f" -> {'within' if within else 'OUTSIDE'} phase 5's rule" if diffs else ""),
+          flush=True)
+    if held:
+        check(within, f"{label}: the first routing decisions taken differently are "
+              f"not near ties: {first[:4]}")
+    return {"n_differ": len(diffs), "first": [
+        {"call": c, "token": t, "kind": k, "margin": m, "unit": u} for c, t, k, m, u in first[:8]],
+        "first_within_rule": within}
+
+
+def moe_backward_bits(moe_mod, cfg) -> dict:
+    """One MoE layer at ``cfg``'s full width (E 64, top-6, d 2048, ff 1408,
+    two shared experts) on T = 2048 tokens (B4 x S512), its backward called
+    twice on the same inputs and cotangent: every gradient (the input's,
+    the router's, each expert's) the same bits, or not. The dispatch gather
+    sends each token's rows back through an accumulating ``index_put_``."""
+    from repro_torch.tree import tree_leaves
+    g = torch.Generator(device="cuda").manual_seed(23)
+    p = moe_mod.moe_params(g, cfg)
+    x = torch.randn(TRAIN["batch"], TRAIN["seq"], cfg.d_model, generator=g, device="cuda")
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    leaves = [x.requires_grad_()] + [w.requires_grad_() for w in tree_leaves(p)]
+
+    def run():
+        y, aux = moe_mod.apply_moe(p, x, cfg)
+        return torch.autograd.grad((y * dy).sum() + aux, leaves)
+
+    first, second = run(), run()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    diff = max(float((a - b).abs().max()) for a, b in zip(first, second))
+    ms = cuda_ms(run, iters=3)
+    out = {"tokens": x.shape[0] * x.shape[1], "experts": cfg.n_experts, "top_k": cfg.top_k,
+           "d_model": cfg.d_model, "moe_d_ff": cfg.moe_d_ff, "same_bits": all(same),
+           "leaves_same": same, "max_abs_diff": diff, "fwd_bwd_ms": ms}
+    print(f"[moe-train] MoE layer backward at T {out['tokens']}, E {cfg.n_experts}, "
+          f"k {cfg.top_k}, d {cfg.d_model}, ff {cfg.moe_d_ff}: two calls give the same "
+          f"bits: {all(same)} (per leaf {same}; max |diff| {diff:.3g}); forward and "
+          f"backward {ms:.2f} ms", flush=True)
+    del p, x, dy, leaves, first, second
+    free_cuda()
+    return out
+
+
+def moe_train_run(fa, TrainSession, rung, cfg, batch_fn, steps, jit):
+    """``steps`` adam steps through ``TrainSession`` on ``rung``; returns
+    (the run's record, its result, its launch counts)."""
+    from repro_torch.optim.optimizers import adam
+    fa.reset_launches()
+    before_gb = [torch.cuda.memory_allocated() / 1e9, torch.cuda.memory_reserved() / 1e9]
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = run_session(TrainSession, [rung], cfg, batch_fn, steps, optimizer=adam(),
+                            adaptive=False, jit=jit)
+    counts = fa.all_launches()
+    ms = step_ms(res)
+    med = statistics.median(ms[2:] if jit else ms[1:])
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    run = dict(losses=res.losses, step_ms=ms, median_step_ms=med,
+               tokens_per_s=B * S / (med / 1e3), wall_s=wall,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+               microbatch=rung.microbatch, param_dtype=rung.param_dtype,
+               allocated_reserved_gb_before=before_gb)
+    if jit:
+        step = rung.jitted_step(cfg, adam(), lr=TRAIN["lr"], device="cuda")
+        run.update(capture_ms=1e3 * step.capture_s, captures=step.captures,
+                   replays=step.replays)
+        check(step.captures == 1 and step.replays == steps - 1,
+              f"{cfg.name} {rung.name}: {step.captures} captures, {step.replays} replays")
+    check(all(map(lambda x: x == x and abs(x) < 1e9, res.losses)),
+          f"{cfg.name} {rung.name}: losses not finite {res.losses}")
+    print(f"[moe-train] {cfg.name} {rung.name} ({rung.param_dtype}, microbatch "
+          f"{rung.microbatch}, {rung.attn_impl}) {'captured' if jit else 'eager'}: losses "
+          f"{[round(x, 5) for x in res.losses]}; step ms {[round(x, 1) for x in ms]}; "
+          f"median {med:.1f} ms = {run['tokens_per_s']:.0f} tokens/s; peak "
+          f"{run['peak_memory_gb']:.2f} GB ({before_gb[0]:.2f} allocated, "
+          f"{before_gb[1]:.2f} reserved before); capture {run.get('capture_ms', 0):.1f} ms; "
+          f"launches {counts}", flush=True)
+    return run, res, counts
+
+
+def rel_diff_max(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def moe_train_phase(fa, fb, ref, build_model, get_config):
+    """Phase 23: the flash kernels at deepseek-moe-16b's train geometry
+    (B4 H16 S512 hd128, causal; f32 and bf16) against their plain versions;
+    the MoE layer's backward twice at its full-width shape; (a)
+    deepseek-moe-16b at full width cut to 5 layers trained through
+    ``TrainSession`` on a static f32 rung, eager, captured and on the plain
+    path, held to phase 6's rules; (b) the bf16 ``lean`` rung; (c)
+    deepseek-v3 cut to its dense MLA layer and the MTP head, eager and
+    captured. Returns (the JSON object, the kernels' checks, each run's
+    launch counts)."""
+    from repro_torch.engine.rungs import Rung, default_rung_ladder
+    from repro_torch.engine.session import TrainSession
+    from repro_torch.launch.steps import cast_params
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import moe
+    from repro_torch.optim.optimizers import adam
+    from repro_torch.tree import tree_leaves
+    released = release_device_memory()
+    B, H, S, hd = (MOE_GEOMETRY[k] for k in ("B", "H", "S", "hd"))
+    checks = {"flash_fwd": check_flash_fwd(fa, ref, cases=[
+        (B, H, S, hd, torch.float32, False), (B, H, S, hd, torch.bfloat16, False)])}
+    checks["flash_bwd_dq"], checks["flash_bwd_dkv"] = check_flash_bwd(fb, ref, cases=[
+        (B, H, S, S, hd, True, torch.float32, False),
+        (B, H, S, S, hd, True, torch.bfloat16, False)])
+    for c in (c for cs in checks.values() for c in cs):
+        check(c["ok"], f"kernel disagrees with its plain version: {c}")
+    cfg = dataclasses.replace(get_config(MOE_TRAIN["arch"]), n_layers=MOE_TRAIN["layers"])
+    bits = moe_backward_bits(moe, cfg)
+    check(bits["same_bits"], f"the MoE layer's backward gave other bits on a second "
+          f"call: {bits}")
+
+    # -- (a) deepseek-moe-16b, f32, full rung ----------------------------------
+    steps = TRAIN["steps"]
+    batch_fn = make_batch_fn(cfg, B, S, seed=TRAIN["seed"])
+    n_params = fake_param_count(cfg)
+    act = activation_gb(cfg, B * S)
+    print(f"[moe-train] {cfg.name}: {cfg.n_layers} layers ({cfg.first_k_dense} dense, "
+          f"d_ff {cfg.dense_d_ff}), d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, {cfg.n_experts} routed experts top-{cfg.top_k} + "
+          f"{cfg.n_shared_experts} shared of {cfg.moe_d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f}B params; reckoned state {STATE_BYTES * n_params / 1e9:.1f} "
+          f"GB (f32 params, gradients, adam m, v and update) + activations "
+          f"~{act:.1f} GB a step; batch {B} x {S}, {steps} steps, adam lr {TRAIN['lr']}",
+          flush=True)
+    first = {k: torch.as_tensor(v, device="cuda") for k, v in batch_fn(0).items()}
+    with RoutingRecorder(moe) as rec:
+        first_losses, grad_rel = grad_agreement(build_model, cfg, first, tree_leaves)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    check(len(rec.calls) == 2 * n_moe, f"{len(rec.calls)} moe calls in two forwards")
+    routing = {"pallas_vs_naive_step0": report_routing(
+        "pallas vs naive, step 0", rec.calls[:n_moe], rec.calls[n_moe:])}
+    print(f"[moe-train] step-0 gradients, pallas vs naive: norm-wise {grad_rel:.3g} "
+          f"(limit {GRAD_RTOL}); losses {first_losses}", flush=True)
+    check(grad_rel <= GRAD_RTOL, f"{cfg.name}: first-step gradients differ by {grad_rel}")
+    del rec
+    runs, launches = {}, {}
+    for impl, jit in (("pallas", False), ("pallas", True), ("naive", True)):
+        key = impl if jit else f"{impl}_eager"
+        rung = Rung(name="static", attn_impl=impl)
+        runs[key], res, counts = moe_train_run(fa, TrainSession, rung, cfg, batch_fn,
+                                               steps, jit)
+        launches[f"moe_train_{key}"] = counts
+        if impl == "pallas":
+            for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                check(counts[kname] == cfg.n_layers * steps,
+                      f"{key}: {kname} launched {counts[kname]} times, not "
+                      f"{cfg.n_layers} x {steps}")
+        else:
+            check(not any(counts.values()), f"the plain path launched: {counts}")
+        if key == "pallas":
+            step_fn = rung.jitted_step(cfg, adam(), lr=TRAIN["lr"], device="cuda")
+            host_ms, dev_ms, top, _ = profile_train_step(step_fn, res.state,
+                                                         batch_fn(steps))
+            del step_fn
+            rung.invalidate()  # the graph's pool: the state and it leave no room
+            free_cuda()
+            # an eager step, whose CPU ops name the kernels' callers
+            eager_fn = rung.train_step_fn(rung.build_model(cfg, "cuda"), adam(),
+                                          lr=TRAIN["lr"])
+            _, eager_ms, eager_top, ops = profile_train_step(eager_fn, res.state,
+                                                            batch_fn(steps))
+            parts = {"device_ms": eager_ms, "expert_bmm_ms": ops.get("aten::bmm", 0.0),
+                     "flash_ms": sum(t for t, _, k in eager_top if "flash_" in k)}
+            parts["rest_ms"] = eager_ms - parts["expert_bmm_ms"] - parts["flash_ms"]
+            flash_ms = sum(t for t, _, k in top if "flash_" in k)
+            runs[key]["profile"] = {"host_ms": host_ms, "device_ms": dev_ms,
+                                    "flash_ms": flash_ms,
+                                    "top": [[t, n, k[:120]] for t, n, k in top[:12]]}
+            runs[key]["profile_eager_parts"] = parts
+            print(f"[profile] {cfg.name} train step, captured: host {host_ms:.1f} ms, "
+                  f"device busy {dev_ms:.1f} ms, the flash kernels {flash_ms:.2f} ms; "
+                  f"eager, by part (device ms): expert bmm {parts['expert_bmm_ms']:.1f}, "
+                  f"flash {parts['flash_ms']:.2f}, the rest {parts['rest_ms']:.1f} of "
+                  f"{parts['device_ms']:.1f}", flush=True)
+            for t, n, k in top[:10]:
+                print(f"[profile]   {t:8.3f} ms {n:5d} calls  {k[:90]}")
+            del eager_fn
+        del res
+        rung.invalidate()
+        free_cuda()
+    rel_c = rel_diff_max(runs["pallas"]["losses"], runs["pallas_eager"]["losses"])
+    rel_n = rel_diff_max(runs["pallas"]["losses"], runs["naive"]["losses"])
+    grad_rel_c = captured_grad_agreement(
+        build_model, cfg, {k: v[:1] for k, v in batch_fn(0).items()}, tree_leaves)
+    print(f"[moe-train] captured vs eager: losses {rel_c:.3g} (limit {LOSS_RTOL}), a "
+          f"replayed step's gradients {grad_rel_c:.3g} (limit {GRAD_RTOL}); pallas vs "
+          f"naive losses {rel_n:.3g} (limit {LOSS_RTOL})", flush=True)
+    check(rel_c <= LOSS_RTOL, f"{cfg.name}: captured and eager losses differ by {rel_c}")
+    check(grad_rel_c <= GRAD_RTOL, f"{cfg.name}: captured gradients differ by {grad_rel_c}")
+    check(rel_n <= LOSS_RTOL, f"{cfg.name}: pallas and naive losses differ by {rel_n}")
+
+    # -- (b) the lean rung: bf16 parameters, microbatch 4 ----------------------
+    lean = default_rung_ladder(batch=B, attn_impl="pallas")[-1]
+    model = build_model(cfg, impl="pallas", device="cuda")
+    params = model.init(model.generator(TRAIN["seed"]))
+    mb = {k: v[:B // lean.microbatch] for k, v in first.items()}
+    with torch.no_grad(), RoutingRecorder(moe) as rec:
+        model.loss(params, mb)
+        model.loss(cast_params(params, torch.bfloat16), mb)
+    routing["bf16_vs_f32_step0"] = report_routing(
+        "bf16 vs f32 parameters, step 0's first microbatch", rec.calls[n_moe:],
+        rec.calls[:n_moe])
+    del model, params, rec
+    free_cuda()
+    runs["lean"], res, counts = moe_train_run(fa, TrainSession, lean, cfg, batch_fn,
+                                              steps, True)
+    launches["moe_train_lean"] = counts
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(counts[kname] == cfg.n_layers * lean.microbatch * steps,
+              f"lean: {kname} launched {counts[kname]} times, not {cfg.n_layers} x "
+              f"{lean.microbatch} x {steps}")
+    runs["lean"]["loss_rel_diff_vs_f32"] = rel_diff_max(res.losses, runs["pallas"]["losses"])
+    del res
+    lean.invalidate()
+    free_cuda()
+
+    # -- (c) deepseek-v3 cut to its dense MLA layer and the MTP head ------------
+    release_device_memory()
+    v3 = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=MOE_TRAIN["v3_layers"],
+                             first_k_dense=MOE_TRAIN["v3_layers"])
+    v3_params = fake_param_count(v3)
+    # a step's peak: the state with the update tree (STATE_BYTES a
+    # parameter) and the activations; the capture draws on its own pool
+    # after the eager first call's cache is released (launch/steps.py)
+    reckoned = {b: STATE_BYTES * v3_params / 1e9 + activation_gb(v3, b * S)
+                for b in (B, B // 2)}
+    v3_batch = B if reckoned[B] <= MOE_TRAIN["peak_limit_gb"] else B // 2
+    print(f"[moe-train] {v3.name} cut to {v3.n_layers} dense MLA layer + the MTP head: "
+          f"d_model {v3.d_model}, {v3.n_heads} heads, vocab {v3.vocab_size}; "
+          f"{v3_params / 1e9:.3f}B params; reckoned peak (the state with adam's "
+          f"update, and one step's activations) {reckoned[B]:.1f} GB at batch {B}, "
+          f"{reckoned[B // 2]:.1f} GB at {B // 2}: batch {v3_batch} x {S} used", flush=True)
+    v3_fn = make_batch_fn(v3, v3_batch, S, seed=TRAIN["seed"])
+    v3_runs = {}
+    for jit in (False, True):
+        rung = Rung(name="static", attn_impl="pallas")
+        key = "captured" if jit else "eager"
+        v3_runs[key], res, counts = moe_train_run(fa, TrainSession, rung, v3, v3_fn,
+                                                  MOE_TRAIN["v3_steps"], jit)
+        launches[f"moe_train_v3_{key}"] = counts
+        del res
+        rung.invalidate()
+        free_cuda()
+    v3_rel = rel_diff_max(v3_runs["captured"]["losses"], v3_runs["eager"]["losses"])
+    print(f"[moe-train] {v3.name}: captured vs eager losses {v3_rel:.3g} (limit "
+          f"{LOSS_RTOL})", flush=True)
+    check(v3_rel <= LOSS_RTOL, f"{v3.name}: captured and eager losses differ by {v3_rel}")
+    release_device_memory()
+    out = {"released": released, "moe_backward": bits,
+           "config": {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+                      "reckoned_state_gb": STATE_BYTES * n_params / 1e9,
+                      "reckoned_activation_gb": act, **TRAIN},
+           "runs": runs, "routing": routing, "first_step_losses": first_losses,
+           "first_step_grad_rel_err": grad_rel,
+           "captured_vs_eager": {"loss_rel_diff_max": rel_c,
+                                 "replayed_grad_rel_err": grad_rel_c},
+           "pallas_vs_naive_loss_rel_diff_max": rel_n,
+           "v3": {"n_layers": v3.n_layers, "params": v3_params, "batch": v3_batch,
+                  "reckoned_peak_gb": reckoned, "steps": MOE_TRAIN["v3_steps"],
+                  "runs": v3_runs, "loss_rel_diff_max": v3_rel}}
+    return out, checks, launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4493,6 +4915,10 @@ def main() -> int:
     deepseek_out, deepseek_checks, deepseek_launches = deepseek_phase(
         fa, ref, serve, build_model, backend, get_config, gather_paged_kv)
     lap("phase 22")
+    free_cuda()
+    moe_train_out, moe_train_checks, moe_train_launches = moe_train_phase(
+        fa, fb, ref, build_model, get_config)
+    lap("phase 23")
 
     def entry(kname, source, replaces, checks, launches_by_path):
         main_c = checks[0]  # f32, the path's dtype
@@ -4589,8 +5015,12 @@ def main() -> int:
         for p, counts in deepseek_launches.items():  # phase 22
             if counts.get(e["name"], 0):
                 e["launches_by_path"][p] = counts[e["name"]]
+        for p, counts in moe_train_launches.items():  # phase 23
+            if counts.get(e["name"], 0):
+                e["launches_by_path"][p] = counts[e["name"]]
         e["checks"] += dense_checks.get(e["name"], [])  # nemotron's geometry
         e["checks"] += deepseek_checks.get(e["name"], [])  # deepseek-moe-16b's
+        e["checks"] += moe_train_checks.get(e["name"], [])  # its train step's
         e["launches"] = sum(e["launches_by_path"].values())
     # the decode kernels' mixed-dtype instantiations (phase 3's checks,
     # phase 17's and 21(d)'s launches): a KV cache in another dtype than
@@ -4632,6 +5062,7 @@ def main() -> int:
     print(json.dumps({"dense": dense_out}))
     print(json.dumps({"obs": obs_out}))
     print(json.dumps({"deepseek": deepseek_out}))
+    print(json.dumps({"moe_train": moe_train_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -91,11 +91,8 @@ class Rung:
 
     # -- executable surface ------------------------------------------------
     def build_model(self, cfg, device="cuda"):
-        """Model under this rung's kernel/dtype knobs (cached per config);
-        a config the port cannot train yet (the moe family) raises."""
+        """Model under this rung's kernel/dtype knobs (cached per config)."""
         from repro_torch.models.registry import build_model
-        from repro_torch.models.transformer import check_trainable
-        check_trainable(cfg)
         key = (cfg.name, self.signature(), str(device))
         if self._model is None or self._model_key != key:
             self._model = build_model(cfg, impl=self.attn_impl, chunk=self.chunk,

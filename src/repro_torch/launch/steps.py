@@ -281,6 +281,11 @@ class CompiledStep:
         counters = _launch_counters()
         before = [dict(c) for c in counters]
         t0 = time.perf_counter()
+        # what the eager first call freed stays cached in the stream's
+        # ordinary pool, which the graph's pool cannot draw on: a train step
+        # would hold its gradients and optimizer update twice (an f32 state
+        # of 2.9B parameters then needs ~80 GB); release it first
+        torch.cuda.empty_cache()
         try:
             graph, out = self._capture(device, lambda: self.fn(*static_args))
         except Exception as e:
@@ -351,8 +356,11 @@ def build_train_step(model: Model, optimizer: Optimizer, *, microbatch: int = 1,
         live = [p.detach().requires_grad_() for p in leaves]  # same storage
         it = iter(live)
         loss = model.loss(tree_map(lambda _: next(it), params), mb)
-        grads = torch.autograd.grad(loss, live)
-        it = iter(grads)
+        # a leaf the loss never reads (an empty stack of layers, shape
+        # (0, ...)) gets the zero gradient jax.grad gives it
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        it = iter(g if g is not None else torch.zeros_like(p)
+                  for g, p in zip(grads, live))
         return loss.detach(), tree_map(lambda _: next(it), params)
 
     def train_step(state, batch):

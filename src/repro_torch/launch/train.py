@@ -10,10 +10,11 @@ controller and migrates in place when interference appears;
 throttling (``heat:cool:slowdown[:trigger:release]``, paper §3.3) so the
 adaptive path can be exercised on a quiet machine. ``--arch`` accepts any
 registry config the port trains: the dense family (``llama3.2-1b``,
-``granite-3-2b``, ``nemotron-4-15b``, ``command-r-35b``) and the paper's CNNs ``resnet34``, ``mobilenet-v2`` and ``shufflenet-v2`` (trained on
-synthetic images; ``--seq`` is unused). The moe family (deepseek) serves
-but does not train yet, and is refused here
-(``models/transformer.check_trainable``). A CNN trains on the plain path
+``granite-3-2b``, ``nemotron-4-15b``, ``command-r-35b``), the moe family
+(``deepseek-moe-16b``, ``deepseek-v3-671b``: the loss adds the router aux
+and MTP terms) and the paper's CNNs ``resnet34``, ``mobilenet-v2`` and
+``shufflenet-v2`` (trained on synthetic images; ``--seq`` is unused). A CNN
+trains on the plain path
 (``--attn-impl naive``, which ``auto`` picks at the default ``--seq``): the
 depthwise kernel that ``pallas`` selects has no gradient, as in the
 reference, and its first backward raises. With ``--adaptive`` a CNN stops
@@ -28,6 +29,9 @@ Usage:
       --steps 50 --batch 4 --seq 512 --attn-impl pallas --optimizer adam
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \
       --steps 12 --batch 2 --seq 64 --attn-impl pallas --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch deepseek-moe-16b --reduced --steps 6 --batch 2 --seq 32 \
+      --attn-impl pallas --optimizer adam --lr 3e-4
   PYTHONPATH=src python -m repro_torch.launch.train --arch mobilenet-v2 \
       --steps 20 --batch 128 --attn-impl naive --optimizer adam --lr 1e-3
   ... --adaptive --interference-trace 40:80:3.0
@@ -46,7 +50,6 @@ from repro_torch.engine.events import InterferenceTrace, ThermalTrace
 from repro_torch.engine.rungs import Rung, default_rung_ladder
 from repro_torch.engine.session import TrainSession
 from repro_torch.kernels.backend import auto_attn_impl, resolve_device
-from repro_torch.models.transformer import check_trainable
 from repro_torch.optim.compression import Compressor
 from repro_torch.optim.optimizers import adam, sgd
 
@@ -115,7 +118,6 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg)
     impl = args.attn_impl
     if impl == "auto":
         impl = auto_attn_impl(args.seq, device=device)

@@ -17,7 +17,12 @@ map (expert, token) -> slot and adds them one after another in ascending
 expert order, the order the reference's scatter meets them in; slots of
 dropped tokens read a zero row. Tokens that fill an expert's capacity with
 a zero gate contribute exactly zero in the reference, so only a token's
-routed experts are gathered.
+routed experts are gathered. The backward needs no such care: the dispatch
+gather ``x_flat[sel_i]`` sends its rows back through an accumulating
+``index_put_``, which on CUDA sorts the indices and sums each token's rows
+in that order, and two backward calls at deepseek-moe-16b's full-width
+layer (T 2048, E 64, top-6) give the same bits on an H100
+(``tests/test_torch_cuda.py::test_moe_backward_gives_the_same_bits_twice``).
 
 The mesh and wide expert-parallel paths of the reference wait for the
 port's multi-card slice: ``apply_moe`` raises if it is given a mesh.

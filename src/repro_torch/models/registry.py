@@ -5,7 +5,8 @@ inputs and return tensors, as the JAX package's do. The dense and moe
 decoders and the CNN family (``family="cnn"``: init, forward and loss only;
 its serving fields are None, as in the reference) are ported; other
 families raise. Under MLA the speculative steps are None, as in the
-reference; a moe model's ``loss`` raises until the moe training slice.
+reference. ``moe_cf``, the MoE layers' capacity factor, reaches every
+function of the model, the loss among them.
 """
 from __future__ import annotations
 
@@ -94,7 +95,8 @@ def build_model(cfg: ModelConfig, *, impl: str = "chunked", chunk: int = 1024,
             p, cfg, b["tokens"], impl=impl, chunk=chunk, remat=remat,
             moe_cf=moe_cf)[0],
         loss=lambda p, b: transformer.loss_decoder(p, cfg, b, impl=impl,
-                                                   chunk=chunk, remat=remat),
+                                                   chunk=chunk, remat=remat,
+                                                   moe_cf=moe_cf),
         prefill=prefill,
         init_cache=lambda batch, max_len, dtype=torch.bfloat16:
             transformer.init_cache_decoder(cfg, batch, max_len, dtype, dev),

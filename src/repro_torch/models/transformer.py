@@ -15,11 +15,12 @@ paged layout keeps its (L, num_blocks, block_size, K, hd) pools.
 The moe family (deepseek) splits the stack as the reference's ``scan``s do:
 ``params["dense_layers"]`` holds the first ``first_k_dense`` layers (an MLP
 of ``dense_d_ff``), ``params["layers"]`` the MoE layers, and
-``params["mtp"]`` the multi-token-prediction head (its params only: the
-loss that reads it waits for the moe training slice). Under MLA
-(deepseek-v3) the cache is {"latent", "k_rope"} of shape (L, B, Smax, r|rd),
-or (L, num_blocks, block_size, r|rd) pools. The VLM, SSM and hybrid
-families are not ported yet.
+``params["mtp"]`` the multi-token-prediction head. ``loss_decoder`` adds
+the MoE layers' summed router aux loss and, where the config has an MTP
+head (deepseek-v3), 0.3 times its cross-entropy on token t+2, as the
+reference does. Under MLA (deepseek-v3) the cache is {"latent", "k_rope"}
+of shape (L, B, Smax, r|rd), or (L, num_blocks, block_size, r|rd) pools.
+The VLM, SSM and hybrid families are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -50,18 +52,6 @@ def _check_family(cfg) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch; the dense "
             f"and moe decoders are")
-
-
-# what the train CLI, Rung and loss_decoder say to a moe config
-MOE_TRAINING = ("training of the moe family (loss_decoder's router aux and MTP "
-                "terms, and the train step and session on them) is not ported "
-                "yet: it is the port's next slice; the moe family serves")
-
-
-def check_trainable(cfg) -> None:
-    """Raise for a config the port cannot train yet (the moe family)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: {MOE_TRAINING}")
 
 
 def _layer_views(layers, n: int):
@@ -150,8 +140,15 @@ def _init_stacked(n: int, make_layer):
     shapes, and layer i is drawn by the i-th call and copied into slot i, so
     the draws come in the order a per-layer list would take them while at
     most one layer lives beside the stack (a list then ``torch.stack`` would
-    hold every layer twice). One layer is viewed, not copied."""
-    first = make_layer()
+    hold every layer twice). One layer is viewed, not copied. No layer is
+    drawn for ``n == 0``, as ``jax.vmap`` over no keys draws none: the
+    layer's shapes come from a run under ``FakeTensorMode``, which neither
+    allocates nor advances the generator."""
+    if n == 0:
+        with FakeTensorMode():
+            first = make_layer()
+    else:
+        first = make_layer()
 
     def alloc(node):
         if isinstance(node, dict):
@@ -277,16 +274,33 @@ def forward_decoder(params, cfg, tokens, *, impl="chunked", chunk=1024,
     return (out[0], aux, out[1]) if with_aux else out
 
 
+def _mtp_loss(params, cfg, h, tokens, impl, chunk):
+    """The MTP head's cross-entropy (deepseek-v3): token t+2 predicted from
+    the last layer's h_t and the embedding of token t+1, through one dense
+    block at positions 0..S-3 (not rematerialised, as in the reference)."""
+    mtp = params["mtp"]
+    emb_next = embed_tokens(params["embed"], tokens[:, 1:-1])
+    u = torch.cat([h[:, :-2], emb_next], dim=-1) @ mtp["proj"]
+    B, S2 = tokens.shape[0], tokens.shape[1] - 2
+    pos = torch.arange(S2, dtype=torch.int32, device=tokens.device)[None].expand(B, S2)
+    u, _ = dense_block(mtp["block"], u, cfg, pos, impl, chunk)
+    logits = _logits(params, cfg, apply_norm(mtp["ln"], u, cfg.norm))
+    return cross_entropy(logits, tokens[:, 2:])
+
+
 def loss_decoder(params, cfg, batch, *, impl="chunked", chunk=1024,
-                 remat="none"):
-    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S). The dense
-    family has no aux loss and no MTP head; the moe family raises
-    (``check_trainable``)."""
-    check_trainable(cfg)
+                 remat="none", moe_cf=1.25):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S), plus the
+    MoE layers' summed router aux loss (zero for the dense family), plus
+    0.3 times the MTP term where ``cfg.n_mtp_modules`` and the params hold
+    ``"mtp"``: the reference's ``loss_decoder``."""
     tokens = batch["tokens"]
-    logits, _ = forward_decoder(params, cfg, tokens, impl=impl, chunk=chunk,
-                                remat=remat)
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    logits, aux, h = forward_decoder(params, cfg, tokens, impl=impl, chunk=chunk,
+                                     remat=remat, moe_cf=moe_cf, with_aux=True)
+    loss = cross_entropy(logits[:, :-1], tokens[:, 1:]) + aux
+    if cfg.n_mtp_modules and "mtp" in params:
+        loss = loss + 0.3 * _mtp_loss(params, cfg, h, tokens, impl, chunk)
+    return loss
 
 
 def _last_logits(params, cfg, h, last_pos=None):

@@ -738,6 +738,13 @@ def test_flash_bwd_matches_plain_at_the_train_shape(dtype, lowp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lowp", BWD_MODES)
+def test_flash_bwd_matches_plain_at_the_moe_train_shape(dtype, lowp):
+    """deepseek-moe-16b's train step: B4 H16 S512 hd128, causal."""
+    _check_bwd(dtype, lowp, 4, 16, 512, 512, 128, True, 0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
 def test_flash_bwd_bf16_launch_failure_raises(kernel, monkeypatch):
     """A bf16 call whose tensor maps cannot be encoded (a base 2 bytes off
@@ -1941,3 +1948,84 @@ def test_deepseek_engine_streams_kernel_against_plain(freed, name, layout, depth
     assert counts["pallas"][kname] > 0, counts["pallas"]
     assert counts["pallas"]["flash_fwd"] == (0 if mla or layout == "paged" else
                                              len(reqs) * cfg.n_layers)
+
+
+def _moe16b(n_layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=n_layers)
+
+
+@pytest.mark.cuda
+def test_moe_backward_gives_the_same_bits_twice(freed):
+    """The MoE layer at deepseek-moe-16b's full-width shape (T 2048 = B4 x
+    S512, E 64, top-6, d 2048, ff 1408, two shared experts), forward and
+    backward twice on the same inputs and cotangent: every gradient the
+    same bits. The dispatch gather's backward sums each token's rows with an
+    accumulating ``index_put_``."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_leaves
+    dev = _device()
+    cfg = _moe16b(2)
+    g = torch.Generator(device=dev).manual_seed(23)
+    p = moe.moe_params(g, cfg)
+    x = torch.randn(4, 512, cfg.d_model, generator=g, device=dev)
+    dy = torch.randn(x.shape, generator=g, device=dev)
+    leaves = [x.requires_grad_()] + [w.requires_grad_() for w in tree_leaves(p)]
+
+    def run():
+        y, aux = moe.apply_moe(p, x, cfg)
+        return torch.autograd.grad((y * dy).sum() + aux, leaves)
+
+    first, second = run(), run()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), (i, float((a - b).abs().max()))
+
+
+@pytest.mark.cuda
+def test_compiled_moe_train_step_matches_eager(freed):
+    """deepseek-moe-16b at full width cut to 2 layers (the dense one and a
+    MoE layer), batch 2 x 128, 4 adam steps captured and eager: losses
+    within 1e-3, first-step gradients (a replay's) within 1e-4 norm-wise, the
+    same launches every step (flash_fwd, dq and dkv once a layer), the calls
+    warm-up, capture, replay, replay."""
+    import numpy as np
+    from repro_torch.engine.rungs import Rung
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.optim.optimizers import adam
+    dev = _device()
+    cfg = _moe16b(2)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)}
+               for _ in range(4)]
+    runs = {}
+    for jit in (True, False):
+        rung = Rung(name="full", attn_impl="pallas")
+        model = rung.build_model(cfg, dev)
+        record = _recording_optimizer()
+        state = init_train_state(model, record, model.generator(0))
+        for _ in range(3):
+            state, _ = rung.jitted_step(cfg, record, device=dev, jit=jit)(state, batches[0])
+        grads = tree_leaves_(state["opt"])
+        del state
+        rung.invalidate()
+        state = init_train_state(model, adam(), model.generator(0))
+        losses, counts = [], []
+        step = rung.jitted_step(cfg, adam(), lr=1e-4, device=dev, jit=jit)
+        for b in batches:
+            before = fa.all_launches()
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+            after = fa.all_launches()
+            counts.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        calls = tuple(getattr(step, k, None) for k in ("captures", "replays", "last_call"))
+        runs[jit] = (losses, grads, calls, counts)
+        del state, step
+        rung.invalidate()
+        _free()
+    got, want = runs[True], runs[False]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-3)
+    assert _rel(got[1], want[1]) <= 1e-4
+    assert got[3] == want[3]
+    assert all(c == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2} for c in got[3])
+    assert got[2] == (1, 3, "replay")

@@ -20,7 +20,8 @@ the order of f32 sums only), 5e-2 at bf16.
   speculative, with slots that retire and ride along idle (capacity counts
   every token of a call, so streams match only under one schedule).
 - ``init_decoder`` builds its stacked leaves in place with the draws of the
-  per-layer list it replaced, bit for bit; moe training is refused.
+  per-layer list it replaced, bit for bit; the moe family trains through
+  ``Model.loss``, ``Rung`` and the train CLI.
 """
 import jax
 import jax.numpy as jnp
@@ -134,17 +135,33 @@ def test_init_builds_the_stack_in_place_with_the_same_draws():
     assert one["w"].shape == (1, 2, 3) and one["w"]._base is not None
 
 
-def test_moe_training_is_refused():
-    model = build_model(CFG, device="cpu")
-    params = model.init(model.generator(0))
-    with pytest.raises(NotImplementedError, match="moe family"):
-        model.loss(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+def test_moe_family_trains_through_every_entry_point():
+    """``Model.loss`` (router aux included), ``Rung.build_model`` and its
+    compiled step, and ``train.main`` each train deepseek-moe-16b
+    (``tests/test_torch_moe_train.py`` holds them to the JAX package)."""
     from repro_torch.engine.rungs import Rung
     from repro_torch.launch import train as ttrain
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Rung(name="full").build_model(CFG, "cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ttrain.main(["--device", "cpu", "--arch", ARCH, "--reduced", "--steps", "1"])
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.optim.optimizers import adam
+    from repro_torch.tree import tree_leaves
+    model = build_model(CFG, device="cpu")
+    params = model.init(model.generator(0))
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    loss = model.loss(params, {"tokens": torch.from_numpy(_tokens(0, 2, 16))})
+    grads = torch.autograd.grad(loss, leaves)
+    assert torch.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)
+    router = dict(zip(_flat(params), grads))["layers/moe/router"]
+    assert float(router.abs().max()) > 0
+    rung = Rung(name="full", attn_impl="pallas")
+    assert rung.build_model(CFG, "cpu").cfg is CFG
+    state = init_train_state(rung.build_model(CFG, "cpu"), adam(), model.generator(0))
+    state, metrics = rung.jitted_step(CFG, adam(), lr=3e-4, device="cpu")(
+        state, {"tokens": _tokens(1, 2, 16)})
+    assert torch.isfinite(metrics["loss"]) and int(state["step"]) == 1
+    losses = ttrain.main(["--device", "cpu", "--arch", ARCH, "--reduced", "--steps", "3",
+                          "--batch", "2", "--seq", "16", "--attn-impl", "pallas",
+                          "--optimizer", "adam", "--lr", "3e-4", "--log-every", "0"])
+    assert len(losses) == 3 and all(np.isfinite(losses))
 
 
 # ---------------------------------------------------------------------------
